@@ -2,16 +2,30 @@
 
     python3 chip_smoke.py
 
-Builds the six CUDA kernels from huffman_codec_tpu_torch/csrc, holds each
-one against its plain PyTorch version on the card (one full main-path
-step of 256 x 64 KiB chunks, diff on and off, and a batch of edge-case
-chunks), round-trips a 64 MiB generated input through
-``TorchCodec.encode``/``decode`` with the diff model on and off, checks a
-container against the plain path run on the CPU, and times the device
-encode and decode and every kernel with CUDA events. It prints the card's
-name and power limit, a ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
-when there is no GPU or any phase fails.
+Builds the seven CUDA kernels from huffman_codec_tpu_torch/csrc and the
+host C++ runtime of the v1 format, and drives two paths.
+
+The sharded streaming path: holds the six kernels it runs against their
+plain PyTorch versions on the card (one full step of 256 x 64 KiB chunks,
+diff on and off, and a batch of edge-case chunks), round-trips a 64 MiB
+generated input through ``TorchCodec.encode``/``decode`` with the diff
+model on and off, checks a container against the plain path run on the
+CPU, and times the device encode and decode and every kernel with CUDA
+events.
+
+The global layout (``CodecConfig()``, the default): holds the kernels it
+runs against their plain versions at its geometries (the whole-file
+candidate's fat lanes at 256 KiB, 1.25 MiB and 2.5 MiB of input, where
+the fat-lane decode kernel runs; the chunked candidate's lane 2048; a
+batch of edge cases), round-trips 256 KiB, 1.25 MiB, 2.5 MiB and 64 MiB
+with the diff model on and off, runs the v1 race on a small input, checks
+containers against the plain path run on the CPU, and times the fat-lane
+kernel, the device encode and decode and the peak device memory.
+
+Each path's kernel launches are counted from zero over its round trips.
+It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
+result, when there is no GPU or any phase fails.
 """
 
 from __future__ import annotations
@@ -25,6 +39,9 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+# The kernels do integer work outside the tensor cores; the data sheet's
+# rate for that class of unit is the float32 one.
+OPS_PER_S = 67e12
 STEP = 256  # chunks per step on the main path
 CS = 1 << 16
 LANE = 512
@@ -45,6 +62,13 @@ def gradient_input(n: int, seed: int) -> np.ndarray:
     base = (row * 3 + col * 2) // 5 + img
     noise = rng.integers(-2, 3, n)
     return ((base + noise) & 255).astype(np.uint8)
+
+
+def bound_of(nbytes: int, ops: int):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the memory rate and the operations over the peak."""
+    by, op = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return (by, "bytes") if by >= op else (op, "operations")
 
 
 def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
@@ -184,6 +208,299 @@ def edge_batch(dev):
     return chunks, in_lens, carries
 
 
+GLOBAL_SIZES = (1 << 18, 5 << 18, 10 << 18, 64 << 20)  # 1, 5, 10 tiles; bulk
+BUCKETS = (8, 12, 16, 24, 31)
+
+
+def global_chain(K, cfg, x, whole, errs):
+    """Run one global-layout candidate's device stage on resident input
+    ``x`` and its decode as ``TorchCodec`` chains them, every kernel held
+    against its plain version on the same inputs (tolerance 0). Returns
+    the tensors the timings reuse."""
+    from huffman_codec_tpu_torch.models.chunked import (
+        _SINGLE_MAX, _chunkify, _global_geometry, _strip_payload)
+    from huffman_codec_tpu_torch.ops.canonical import assign_codes, build_lengths_pm
+    from huffman_codec_tpu_torch.ops.diff import diff_apply
+    from huffman_codec_tpu_torch.ops.rle import rle_encode
+
+    dev = x.device
+    n = x.shape[0]
+    cs, lane, max_chunks = _global_geometry(cfg, n, whole)
+    xs = diff_apply(x) if cfg.use_diff else x
+    stream, total = rle_encode(
+        xs[None, :], torch.tensor([n], dtype=torch.int32, device=dev),
+        max_chunks * cs)
+    chunks, lens = _chunkify(stream[0], total[0], cs, max_chunks)
+    counts = K.histogram256(chunks, lens)
+    torch.cuda.synchronize()
+    same("histogram256", counts, K.histogram256_plain(chunks, lens), errs)
+    cl = build_lengths_pm(counts)
+    tables = (assign_codes(cl) | (cl << 26)).to(torch.int32)
+    buf, bits = K.lane_pack(chunks, lens, tables, lane)
+    torch.cuda.synchronize()
+    pbuf, pbits = K.lane_pack_plain(chunks, lens, tables, lane)
+    same("lane_pack", buf, pbuf, errs)
+    same("lane_pack.bits", bits, pbits, errs)
+    del pbuf
+    lw = ((bits + 31) >> 5).to(torch.int32)
+    flat = _strip_payload(buf, lw).contiguous()
+    wb = min(max(8, -(-int(lw.max()) // 16) * 16), K.lane_words_cap(lane))
+    rows, rcs, lt = max_chunks, cs, cl.to(torch.uint8)
+    if whole and (cs // lane) % 8 == 0 and cs <= _SINGLE_MAX:
+        rows, rcs = 8, cs // 8  # decode as 8 pseudo-chunks, one table
+        lw = lw.view(8, -1).contiguous()
+        lt = lt.repeat(8, 1)
+    padded = K.repad_words(flat, lw, wb)
+    torch.cuda.synchronize()
+    same("repad_words", padded, K.repad_words_plain(flat, lw, wb), errs)
+    cnt = (total[0].to(torch.int64) - torch.arange(rows, device=dev) * rcs
+           ).clamp(0, rcs).to(torch.int32)
+    pb = padded.view(rows, lw.shape[1], wb)
+    max_len = next(b for b in BUCKETS if b >= int(cl.max()))
+    name = "lane_decode_lanemajor" if lane > 4096 else "lane_decode"
+    dec = getattr(K, name)(pb, lt, cnt, lane, max_len)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = getattr(K, name + "_plain")(pb, lt, cnt, lane, max_len)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    same(name, dec, want, errs)
+    same(name + ".vs_stream", dec.view(1, -1), stream, errs)
+    return dict(x=x, chunks=chunks, lens=lens, counts=counts, cl=cl,
+                tables=tables, lane=lane, cs=cs, buf=buf, flat=flat, lw=lw,
+                wb=wb, pb=pb, lt=lt, cnt=cnt, max_len=max_len, dec=dec,
+                total=int(total[0]), plain_ms=plain_ms, name=name,
+                shape=(rows, lw.shape[1]))
+
+
+def stage_split(K, g):
+    """Device time of each stage of the whole-file candidate and of its
+    decode, on the tensors ``global_chain`` left (diff on)."""
+    from huffman_codec_tpu_torch.models.chunked import (
+        _decode_stream_tail, _strip_payload)
+    from huffman_codec_tpu_torch.ops.canonical import assign_codes, build_lengths_pm
+    from huffman_codec_tpu_torch.ops.diff import diff_apply
+    from huffman_codec_tpu_torch.ops.rle import rle_encode
+
+    x, n = g["x"], g["x"].shape[0]
+    nn = torch.tensor([n], dtype=torch.int32, device=x.device)
+    lw1 = g["lw"].view(1, -1)
+    stages = {
+        "diff_apply + rle_encode (torch ops)":
+            lambda: rle_encode(diff_apply(x)[None, :], nn, g["cs"]),
+        "histogram256": lambda: K.histogram256(g["chunks"], g["lens"]),
+        "build_lengths_pm + assign_codes (torch ops)":
+            lambda: assign_codes(build_lengths_pm(g["counts"])),
+        "lane_pack": lambda: K.lane_pack(g["chunks"], g["lens"], g["tables"],
+                                         g["lane"]),
+        "strip_payload (torch ops)": lambda: _strip_payload(g["buf"], lw1),
+        "repad_words": lambda: K.repad_words(g["flat"], g["lw"], g["wb"]),
+        "lane_decode_lanemajor": lambda: K.lane_decode_lanemajor(
+            g["pb"], g["lt"], g["cnt"], g["lane"], g["max_len"]),
+        "rle_decode + diff_revert (torch ops)": lambda: _decode_stream_tail(
+            g["dec"].view(-1), g["total"], n + 8, True),
+    }
+    log(f"global stages at {n} B, whole-file candidate, diff on (ms):",
+        {k: round(cuda_ms(f, reps=5), 3) for k, f in stages.items()})
+
+
+def fat_edge_batch(K, dev, errs):
+    """The fat-lane decode kernel on edge cases at lane 8192, two lanes a
+    chunk and one: a full random chunk, a partial last lane, an empty
+    chunk, a one-symbol table, two symbols one byte short of full."""
+    from huffman_codec_tpu_torch.models.chunked import _strip_payload
+    from huffman_codec_tpu_torch.ops.canonical import assign_codes, build_lengths_pm
+
+    lane = 8192
+    rng = np.random.default_rng(SEED + 7)
+    for nl in (2, 1):
+        L = nl * lane
+        rows = [rng.integers(0, 256, L, dtype=np.uint8),
+                gradient_input(L, SEED + 8), np.zeros(L, np.uint8),
+                np.full(L, 65, np.uint8),
+                rng.integers(0, 2, L, dtype=np.uint8)]
+        lens = [L, L - lane + 1000, 0, L, L - 1]
+        chunks = torch.from_numpy(np.stack(rows)).to(dev)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        cl = build_lengths_pm(K.histogram256(chunks, ln))
+        tables = (assign_codes(cl) | (cl << 26)).to(torch.int32)
+        buf, bits = K.lane_pack(chunks, ln, tables, lane)
+        lw = ((bits + 31) >> 5).to(torch.int32)
+        wb = max(8, -(-int(lw.max()) // 16) * 16)
+        pb = K.repad_words(_strip_payload(buf, lw).contiguous(), lw,
+                           wb).view(len(rows), nl, wb)
+        lt = cl.to(torch.uint8)
+        dec = K.lane_decode_lanemajor(pb, lt, ln, lane, 31)
+        torch.cuda.synchronize()
+        same("lane_decode_lanemajor", dec,
+             K.lane_decode_lanemajor_plain(pb, lt, ln, lane, 31), errs)
+        valid = torch.arange(L, device=dev)[None, :] < ln[:, None]
+        same("lane_decode_lanemajor.vs_input", dec,
+             torch.where(valid, chunks, 0), errs)
+
+
+def global_path(K, TorchCodec, CodecConfig, x, errs):
+    """The global layout's checks, counted round trips and timings.
+    Returns (launch counts of its round trips, kernel 7's row values)."""
+    from huffman_codec_tpu_torch.native import runtime
+
+    dev = torch.device("cuda")
+    cfgs = {d: CodecConfig(use_diff=d) for d in (False, True)}
+
+    # -- kernels against their plain versions at the global geometries ------
+    whole = {}
+    for n in GLOBAL_SIZES[:3]:  # whole-file candidate: fat lanes, kernel 7
+        xd = torch.from_numpy(x[:n].copy()).to(dev)
+        whole[n] = g = global_chain(K, cfgs[True], xd, True, errs)
+        log(f"global whole-file {n} B: lane {g['lane']}, chunk {g['cs']}, "
+            f"decode geometry {g['shape']} x {g['lane']}: {g['name']} and "
+            f"kernels 2-4 equal their plain versions (plain decode "
+            f"{g['plain_ms']:.0f} ms)")
+    xd = torch.from_numpy(x[: 16 << 20].copy()).to(dev)
+    g = global_chain(K, cfgs[False], xd, False, errs)  # chunked: lane 2048
+    log(f"global chunked 16 MiB: lane {g['lane']}, {g['shape'][0]} chunks: "
+        f"{g['name']} and kernels 2-4 equal their plain versions")
+    del g, xd
+    fat_edge_batch(K, dev, errs)
+    log("global kernels vs plain: all equal; max abs err", max(errs.values()))
+
+    # -- counted round trips through encode()/decode() -----------------------
+    blobs = {}
+    K.reset_launches()
+    for n in GLOBAL_SIZES:
+        data = x[:n].tobytes()
+        for d, cfg in cfgs.items():
+            codec = TorchCodec(cfg)
+            t = time.perf_counter()
+            blob = codec.encode(data)
+            e2e_enc = time.perf_counter() - t
+            t = time.perf_counter()
+            back = codec.decode(blob)
+            e2e_dec = time.perf_counter() - t
+            if back != data:
+                raise AssertionError(f"global round trip failed ({n} B, "
+                                     f"diff={d})")
+            if blob[:6] != b"HCTPU\x03":
+                raise AssertionError(f"expected a v3 container ({n} B, "
+                                     f"diff={d}): above the v1 race's gate")
+            hdr = codec._parse(blob)
+            won = ("whole-file" if hdr["n_chunks"] == 1 and hdr["lane"] > 2048
+                   else "chunked")
+            log(f"global {n} B diff={d}: {won} candidate won (chunk "
+                f"{hdr['chunk_size']}, lane {hdr['lane']}, {hdr['n_chunks']} "
+                f"chunks), {len(blob)} B, {8 * len(blob) / n:.4f} bpc, round "
+                f"trip exact, crc ok; end to end encode {e2e_enc:.3f} s, "
+                f"decode {e2e_dec:.3f} s")
+            blobs[(n, d)] = blob
+    launches = K.launch_counts()
+    log("global path launches (eight round trips):", launches)
+    for name in ("lane_decode_lanemajor", "histogram256", "lane_pack",
+                 "repad_words", "lane_decode"):
+        if not launches[name]:
+            raise AssertionError(f"{name} was never launched on the global "
+                                 f"path: {launches}")
+
+    # -- the v1 race on a small, compressible input --------------------------
+    small = x[: 1 << 16].tobytes()
+    codec = TorchCodec(cfgs[True])
+    v3 = min((codec._encode_global(small, None, w)
+              for w in codec.global_candidates(len(small))), key=len)
+    v1 = runtime.v1_compress(small, True, False, 512)
+    got = codec.encode(small)
+    if got != (v1 if len(v1) < len(v3) else v3):
+        raise AssertionError("encode() did not keep the smaller of v3 and v1")
+    for blob in (got, v1, v3):
+        if codec.decode(blob) != small:
+            raise AssertionError("v1 race: decode failed")
+    log(f"v1 race on {len(small)} B: v3 {len(v3)} B, v1 {len(v1)} B, "
+        f"{'v1' if got == v1 else 'v3'} kept; v1 and v3 both decode exactly")
+
+    # -- containers equal the plain path on the CPU (encode only) ------------
+    for n in (GLOBAL_SIZES[0], GLOBAL_SIZES[2]):
+        for d, cfg in cfgs.items():
+            if TorchCodec(cfg, device="cpu").encode(x[:n].tobytes()) != \
+                    blobs[(n, d)]:
+                raise AssertionError(f"global GPU container differs from the "
+                                     f"CPU plain path ({n} B, diff={d})")
+        log(f"global {n} B: GPU container == CPU plain container, diff on "
+            "and off")
+
+    # -- kernel 7 and its neighbours at the whole-file geometries ------------
+    k7 = {}
+    for n, g in whole.items():
+        args = (g["pb"], g["lt"], g["cnt"], g["lane"], g["max_len"])
+        ms = cuda_ms(lambda: K.lane_decode_lanemajor(*args), reps=10)
+        ms5 = cuda_ms(lambda: K.lane_decode(*args), reps=5)
+        same("lane_decode_lanemajor.vs_lane_decode",
+             K.lane_decode_lanemajor(*args), K.lane_decode(*args), errs)
+        rows, nl = g["shape"]
+        nbytes = (4 * int(g["lw"].sum()) + 260 * rows
+                  + rows * nl * g["lane"])
+        # a table lookup, two shifts, a store and a refill test a symbol
+        bound, by = bound_of(nbytes, 8 * int(g["cnt"].sum()))
+        k7[n] = dict(ms=ms, plain_ms=g["plain_ms"], bound_ms=bound,
+                     bound_by=by, lane_decode_ms=ms5, shape=g["shape"])
+        log(f"lane_decode_lanemajor {g['shape']} x {g['lane']} ({n} B in): "
+            f"{ms:.4f} ms, plain {g['plain_ms']:.0f} ms, bound "
+            f"{bound:.5f} ms by {by} ({nbytes} B); "
+            f"lane_decode on the same buffer {ms5:.4f} ms")
+    g = whole[GLOBAL_SIZES[2]]
+    C, L = g["chunks"].shape
+    for name, fn, nbytes in (
+            ("histogram256", lambda: K.histogram256(g["chunks"], g["lens"]),
+             int(g["lens"].sum()) + 4 * C + 1024 * C),
+            ("lane_pack", lambda: K.lane_pack(g["chunks"], g["lens"],
+                                              g["tables"], g["lane"]),
+             int(g["lens"].sum()) + 1028 * C + 4 * (L // g["lane"])
+             * (K.lane_words_cap(g["lane"]) + 1)),
+            ("repad_words", lambda: K.repad_words(g["flat"], g["lw"], g["wb"]),
+             4 * int(g["lw"].sum()) + 4 * g["lw"].numel()
+             + 4 * g["lw"].numel() * g["wb"])):
+        log(f"{name} at the 2.5 MiB whole-file chunk (1 x {L}, lane "
+            f"{g['lane']}): {cuda_ms(fn, reps=10):.4f} ms, bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} B)")
+    stage_split(K, g)
+    del whole, g
+
+    # -- device encode and decode, inputs resident ---------------------------
+    for n in GLOBAL_SIZES:
+        xd = torch.from_numpy(x[:n].copy()).to(dev)
+        for d, cfg in cfgs.items():
+            codec = TorchCodec(cfg)
+            cands = codec.global_candidates(n)
+            hdr = codec._parse(blobs[(n, d)])
+            st = codec.stage_global(blobs[(n, d)], hdr)
+            torch.cuda.synchronize()
+
+            def enc():
+                return [codec.run_global_stage(xd, w) for w in cands]
+
+            def dec():
+                return codec.run_global_decode(hdr, st)
+
+            enc_ms, dec_ms = median_ms(enc), median_ms(dec)
+            line = (f"global device {n} B diff={d}: encode "
+                    f"{n / enc_ms / 1e3:.1f} MB/s ({enc_ms:.3f} ms, "
+                    f"{len(cands)} candidates), decode "
+                    f"{n / dec_ms / 1e3:.1f} MB/s ({dec_ms:.3f} ms)")
+            if n == GLOBAL_SIZES[3]:
+                peaks = []
+                for fn in (enc, dec):
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    before = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    fn()
+                    torch.cuda.synchronize()
+                    peaks.append((torch.cuda.max_memory_allocated() - before)
+                                 / 2 ** 30)
+                line += (f"; peak device memory above what was resident: "
+                         f"encode {peaks[0]:.2f} GiB, decode {peaks[1]:.2f} "
+                         "GiB")
+            log(line)
+    return launches, k7[GLOBAL_SIZES[2]]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -191,11 +508,13 @@ def main() -> int:
     from huffman_codec_tpu_torch import CodecConfig, TorchCodec
     from huffman_codec_tpu_torch.models.chunked import (
         _encode_sharded_stage, _strip_payload)
+    from huffman_codec_tpu_torch.native import runtime as native_runtime
     from huffman_codec_tpu_torch.ops import _build
     from huffman_codec_tpu_torch.ops import kernels as K
     from huffman_codec_tpu_torch.ops.canonical import assign_codes, build_lengths_pm
     from huffman_codec_tpu_torch.ops.rle import rle_classify
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -210,6 +529,9 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log(f"build: host runtime {native_runtime.build().name} in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name in _build.SOURCES:
         lg = _build.BUILD_DIR / f"{name}.log"
         if lg.exists():
@@ -248,7 +570,9 @@ def main() -> int:
             raise AssertionError(f"64 MiB round trip failed (diff={d})")
     launches = K.launch_counts()
     log("main path launches (two 64 MiB round trips):", launches)
-    if not all(launches.values()):
+    sharded_kernels = [k.__name__ for k in K.KERNELS
+                       if k is not K.lane_decode_lanemajor]
+    if not all(launches[k] for k in sharded_kernels):
         raise AssertionError(f"a kernel was never launched: {launches}")
     for d, b in blobs.items():
         log(f"64 MiB diff={d}: {len(b)} B, {8 * len(b) / n_in:.4f} bpc, "
@@ -312,45 +636,51 @@ def main() -> int:
         out = torch.zeros((C, nl, s["wb"]), dtype=torch.int32, device=dev)
         return out.masked_scatter_(mk, s["flat"])
 
+    # integer operations each kernel needs on this step's data, counted
+    # per element: a handful of compares, shifts and adds a byte, and for
+    # the decode the length search over the code's bits (three a bit)
+    bits_per_sym = 32 * sum_lw / max(sum_rl, 1)
     specs = [
         ("rle_diff_encode", "rle_encode.cu", 944,
          lambda: K.rle_diff_encode(s["chunks"], s["in_lens"], s["carries"],
                                    True, s["cap"]),
          lambda: K.rle_diff_encode_plain(s["chunks"], s["in_lens"],
                                          s["carries"], True, s["cap"]),
-         None, sum_in + 5 * C + C * s["cap"] + 4 * C),
+         None, sum_in + 5 * C + C * s["cap"] + 4 * C, 10 * sum_in),
         ("histogram256", "histogram.cu", 1163,
          lambda: K.histogram256(s["st"], s["rl"]),
          lambda: K.histogram256_plain(s["st"], s["rl"]),
          lambda: histogram_library(s["st"], s["rl"]),
-         sum_rl + 4 * C + 1024 * C),
+         sum_rl + 4 * C + 1024 * C, 2 * sum_rl),
         ("lane_pack", "lane_pack.cu", 312,
          lambda: K.lane_pack(s["st"], s["rl"], s["tables"], LANE),
          lambda: K.lane_pack_plain(s["st"], s["rl"], s["tables"], LANE),
          None, sum_rl + 1028 * C + 4 * C * nl * K.lane_words_cap(LANE)
-         + 4 * C * nl),
+         + 4 * C * nl, 6 * sum_rl),
         ("repad_words", "repad.cu", 1125,
          lambda: K.repad_words(s["flat"], s["lw"], s["wb"]),
          lambda: K.repad_words_plain(s["flat"], s["lw"], s["wb"]),
-         repad_lib, 4 * sum_lw + 4 * C * nl + 4 * C * nl * s["wb"]),
+         repad_lib, 4 * sum_lw + 4 * C * nl + 4 * C * nl * s["wb"],
+         4 * C * nl * s["wb"]),
         ("lane_decode", "lane_decode.cu", 531,
          lambda: K.lane_decode(s["pb"], s["lt"], s["rl"], LANE, s["max_len"]),
          lambda: K.lane_decode_plain(s["pb"], s["lt"], s["rl"], LANE,
                                      s["max_len"]),
-         None, 4 * sum_lw + 260 * C + C * nl * LANE),
+         None, 4 * sum_lw + 260 * C + C * nl * LANE,
+         int((3 * bits_per_sym + 6) * sum_rl)),
         ("rle_expand", "rle_expand.cu", 1031,
          lambda: K.rle_expand(s["dec"], s["ic"], s["rl"], s["carries"], CS,
                               True),
          lambda: K.rle_expand_plain(s["dec"], s["ic"], s["rl"], s["carries"],
                                     CS, True),
-         None, 2 * sum_rl + 5 * C + C * CS),
+         None, 2 * sum_rl + 5 * C + C * CS, 6 * C * CS),
     ]
     rows = []
-    for name, src, line, kern, plain, lib, nbytes in specs:
+    for name, src, line, kern, plain, lib, nbytes, n_ops in specs:
         ms = cuda_ms(kern, reps=20, warm=3)
         pms = cuda_ms(plain, reps=2, warm=1)
         lms = cuda_ms(lib, reps=20, warm=3) if lib else None
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        bound, bound_by = bound_of(nbytes, n_ops)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"huffman_codec_tpu_torch/csrc/{src}",
@@ -359,9 +689,9 @@ def main() -> int:
             "max_abs_err": max(v for k, v in errs.items()
                                if k.split(".")[0] == name),
             "ms": ms, "plain_ms": pms, "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": lms})
+            "bound_by": bound_by, "library_ms": lms})
         log(f"{name:16s} {ms:9.4f} ms  plain {pms:10.3f} ms  bound "
-            f"{bound:.4f} ms ({nbytes} B)  library "
+            f"{bound:.4f} ms by {bound_by} ({nbytes} B)  library "
             f"{lms if lms is None else round(lms, 4)}  launches "
             f"{launches[name]}")
     buf_s = K.lane_pack(s["st"], s["rl"], s["tables"], LANE)[0]
@@ -373,6 +703,28 @@ def main() -> int:
     }
     log("torch ops per 256-chunk step (ms):", {
         k: round(cuda_ms(f, reps=5), 3) for k, f in ops.items()})
+
+    del specs, ops, buf_s, repad_lib, mk, xd
+    main_shapes.clear()
+    torch.cuda.empty_cache()
+
+    # -- the global layout -----------------------------------------------------
+    glaunches, k7 = global_path(K, TorchCodec, CodecConfig, x, errs)
+    for row in rows:
+        row["launches_global"] = glaunches[row["name"]]
+    rows.append({
+        "name": "lane_decode_lanemajor", "route": "cuda",
+        "source": "huffman_codec_tpu_torch/csrc/lane_decode_lm.cu",
+        "replaces": "huffman_codec_tpu/ops/pallas_kernels.py:673",
+        "launches": glaunches["lane_decode_lanemajor"],
+        "launches_global": glaunches["lane_decode_lanemajor"],
+        "max_abs_err": max(v for k, v in errs.items()
+                           if k.split(".")[0] == "lane_decode_lanemajor"),
+        "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+        "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
+        "library_ms": None,
+        "lane_decode_ms": k7["lane_decode_ms"]})
+    log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

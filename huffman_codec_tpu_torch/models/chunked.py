@@ -1,9 +1,9 @@
-"""TorchCodec: the v3 sharded canonical codec on PyTorch and CUDA.
+"""TorchCodec: the v3 canonical codec on PyTorch and CUDA, in the global
+layout (``CodecConfig``'s default) and the sharded streaming layout.
 
-Writes the same v3 container bytes as the JAX package's
-``TPUCodec(CodecConfig(layout="sharded", ...))`` for the same input and
-config, and decodes the containers of either package. Layout of the wire
-(little-endian; payload words big-endian):
+Writes the same container bytes as the JAX package's ``TPUCodec`` for the
+same input and config, and decodes the containers of either package.
+Layout of the v3 wire (little-endian; payload words big-endian):
 
     magic "HCTPU\\x03" | version u8 (3) | flags u8 | entropy u8
     table bit width u8 | lane-words bit width u8
@@ -14,16 +14,30 @@ config, and decodes the containers of either package. Layout of the wire
                 lane_words of the used lanes, k bits packed
     payload: every chunk's lanes, each word-aligned, chunk after chunk
 
-Encode, one step of ``step_chunks`` input chunks at a time: per-chunk diff
-seeded by the carry byte and MNP-5 RLE (kernel), byte histogram (kernel),
-package-merge code lengths and canonical codes (torch ops), lane pack
-(kernel), then the padding between lanes is stripped on the device.
-Decode, per step: re-pad the wire words to a fixed lane stride (kernel),
-canonical lane decode (kernel), count-byte classification (torch ops),
-MNP-5 expansion with the diff revert (kernel), then the crc32 check.
+Sharded encode, one step of ``step_chunks`` input chunks at a time:
+per-chunk diff seeded by the carry byte and MNP-5 RLE (kernel), byte
+histogram (kernel), package-merge code lengths and canonical codes (torch
+ops), lane pack (kernel), then the padding between lanes is stripped on
+the device. Sharded decode, per step: re-pad the wire words to a fixed
+lane stride (kernel), canonical lane decode (kernel), count-byte
+classification (torch ops), MNP-5 expansion with the diff revert
+(kernel), then the crc32 check.
 
-This slice supports ``layout="sharded"``, ``entropy="canonical"`` and
-``use_adapt=False``; other configurations raise NotImplementedError.
+Global encode: diff and MNP-5 RLE over the whole input as one stream
+(torch ops; runs cross chunk borders), the stream cut into chunks, the
+same canonical stage. Two containers of the same wire are tried, the
+whole stream as one chunk of 8 to 112 fat lanes (one table, the smallest
+manifest) and ``chunk_size`` chunks at lane 2048 (a table per chunk), and
+the smaller is kept; a small input whose v3 container is small also races
+the reference's v1 format, encoded by the host C++ runtime. Global
+decode: re-pad every chunk (kernel), canonical lane decode (the
+block-per-lane kernel for a whole-file container's fat lanes), then the
+whole-stream RLE decode and diff revert (torch ops), the size check and
+the crc32. ``decode`` tells v1 and v2 blobs by their magic and hands them
+to the host runtime.
+
+Supported: ``entropy="canonical"`` and ``use_adapt=False`` in both
+layouts; other configurations raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,15 +57,25 @@ from huffman_codec_tpu_torch.formats import (
     FLAG_DIFF,
     FLAG_SHARDED,
     GROUP_K,
+    HUFF_HEADER_BYTES,
     V3_MAGIC,
+    is_v2,
+    parse_huff_header,
 )
+from huffman_codec_tpu_torch.native import runtime
 from huffman_codec_tpu_torch.ops import kernels
 from huffman_codec_tpu_torch.ops.canonical import (
     canonical_decode_batch,
     canonical_encode_batch,
 )
+from huffman_codec_tpu_torch.ops.diff import diff_apply, diff_revert
 from huffman_codec_tpu_torch.ops.kernels import lane_words_cap
-from huffman_codec_tpu_torch.ops.rle import rle_classify, rle_max_encoded_len
+from huffman_codec_tpu_torch.ops.rle import (
+    rle_classify,
+    rle_decode,
+    rle_encode,
+    rle_max_encoded_len,
+)
 
 
 @dataclass(frozen=True)
@@ -76,9 +100,14 @@ class CodecConfig:
                 | (FLAG_SHARDED if self.layout == "sharded" else 0))
 
 
-# the configuration this slice runs: the sharded streaming layout in
-# stream mode with canonical entropy, 256 chunks of 64 KiB per step
+# the bulk streaming configuration: the sharded layout in stream mode
+# with canonical entropy, 256 chunks of 64 KiB per step
 MAIN_PATH = CodecConfig(layout="sharded", step_chunks=256)
+
+# a one-chunk container up to this size decodes as 8 pseudo-chunks
+_SINGLE_MAX = 2 << 20
+# the whole-file candidate is tried up to this padded RLE size
+_WHOLE_MAX_CAP = 3_500_000
 
 
 def config_from_fields(d: dict) -> CodecConfig:
@@ -158,15 +187,69 @@ def _encode_sharded_stage(data: torch.Tensor, length: int, carry0: int,
     return buf, lane_words, tables, rle_lens, carries
 
 
+def _chunkify(stream: torch.Tensor, total: torch.Tensor, chunk_size: int,
+              max_chunks: int):
+    """Flat stream of ``total`` valid bytes -> (max_chunks, chunk_size)
+    rows and their valid lengths."""
+    starts = torch.arange(max_chunks, device=stream.device) * chunk_size
+    lens = (total.to(torch.int64) - starts).clamp(0, chunk_size)
+    return stream.view(max_chunks, chunk_size), lens.to(torch.int32)
+
+
+def _encode_stream_stage(data: torch.Tensor, use_diff: bool, chunk_size: int,
+                         max_chunks: int, lane: int):
+    """Whole-input diff -> whole-input RLE (one stream, no carries) ->
+    chunked canonical entropy. ``data`` is (n,) uint8 on the device.
+    Returns (lane_buf, lane_words, tables, total) on the device."""
+    x = diff_apply(data) if use_diff else data
+    n = torch.tensor([x.shape[0]], dtype=torch.int32, device=x.device)
+    stream, total = rle_encode(x[None, :], n, max_chunks * chunk_size)
+    chunks, lens = _chunkify(stream[0], total[0], chunk_size, max_chunks)
+    buf, lane_words, tables = canonical_encode_batch(chunks, lens, lane=lane)
+    return buf, lane_words, tables, total[0]
+
+
+def _global_geometry(cfg: CodecConfig, n: int, whole: bool):
+    """(chunk_size, lane, max_chunks) of one global-layout candidate for
+    ``n`` input bytes. ``whole``: one chunk of fat lanes, the smallest
+    power-of-two lane >= an eighth of the padded RLE size, at most 32768,
+    and the chunk rounded up to 8 lanes; else ``chunk_size`` chunks at
+    lane 2048 (the configured lane when ``whole_file`` is off or 2048
+    does not divide the chunk)."""
+    cap = rle_max_encoded_len(n) + 64
+    if whole:
+        lane = min(1 << 15, max(64, 1 << ((cap + 7) // 8 - 1).bit_length()))
+        cs = _cdiv(cap, 8 * lane) * (8 * lane)
+        return cs, lane, 1
+    lane = (2048 if cfg.whole_file and cfg.chunk_size % 2048 == 0
+            else cfg.lane)
+    return cfg.chunk_size, lane, _cdiv(cap, cfg.chunk_size)
+
+
+def _decode_stream_tail(stream: torch.Tensor, total: int, out_len: int,
+                        use_diff: bool):
+    """Whole-stream RLE decode and diff revert of a flat (N,) stream."""
+    n = torch.tensor([total], dtype=torch.int32, device=stream.device)
+    out, m = rle_decode(stream[None, :], n, out_len)
+    return (diff_revert(out[0]) if use_diff else out[0]), m[0]
+
+
 class TorchCodec:
     """Chunk-parallel lossless codec whose encode and decode run on a CUDA
     device through the kernels of ``ops/kernels.py``.
 
+    ``config=None`` means ``CodecConfig()``, the global layout.
     ``device=None`` means ``"cuda"``, and raises when no GPU is present;
     ``device="cpu"`` runs every kernel's plain PyTorch version instead."""
 
+    # the v1 race runs only on small inputs (the v1 FGK chain is serial
+    # per symbol) whose v3 container is small enough for its fixed costs
+    # to decide the winner
+    _V1_RACE_MAX_IN = 1 << 20
+    _V1_RACE_MAX_OUT = 1 << 16
+
     def __init__(self, config: CodecConfig | None = None, device=None):
-        self.config = cfg = config or MAIN_PATH
+        self.config = cfg = config or CodecConfig()
         if cfg.entropy not in ENTROPY:
             raise ValueError(f"unknown entropy mode {cfg.entropy}")
         if cfg.layout not in ("global", "sharded"):
@@ -177,9 +260,6 @@ class TorchCodec:
             if cfg.lane > 1 << 15:
                 raise ValueError("lane > 32768 overflows the packed "
                                  "lane-words manifest width")
-        if cfg.layout != "sharded":
-            raise NotImplementedError(
-                "the global layout comes with ROADMAP.md queue 1 item 6")
         if cfg.use_adapt:
             raise NotImplementedError(
                 "adaptive block RLE comes with ROADMAP.md queue 1 item 7")
@@ -194,12 +274,15 @@ class TorchCodec:
     # -- encode -------------------------------------------------------------
 
     def encode_chunk_range(self, data: np.ndarray | bytes, c0: int, c1: int):
-        """Encode chunks [c0, c1) of the input as one fixed step; chunks
-        past the input are zero-padded and encode nothing. The step is
-        restartable through its carry byte, so a range re-encoded alone
-        splices in byte-equal. Returns (lane_buf, lane_words, tables,
-        rle_lens, carries) on the device, without synchronising."""
+        """Encode chunks [c0, c1) of the input (sharded layout only) as
+        one fixed step; chunks past the input are zero-padded and encode
+        nothing. The step is restartable through its carry byte, so a
+        range re-encoded alone splices in byte-equal. Returns (lane_buf,
+        lane_words, tables, rle_lens, carries) on the device, without
+        synchronising."""
         cfg = self.config
+        if cfg.layout != "sharded":
+            raise ValueError("encode_chunk_range requires the sharded layout")
         cs = cfg.chunk_size
         arr = (np.frombuffer(data, np.uint8)
                if isinstance(data, (bytes, bytearray)) else data)
@@ -218,6 +301,15 @@ class TorchCodec:
         if n == 0:
             return self._container(b"", 0, 0, [], None, None, None,
                                    zlib.crc32(b""))
+        if cfg.layout != "sharded":
+            # best of two shapes of the same wire: the whole-file candidate
+            # wins when the per-chunk manifest dominates, the chunked one
+            # when the statistics drift and a table per chunk pays; it is
+            # first, so it also wins a tie
+            sts = [self._dispatch_global(data, None, w)
+                   for w in self.global_candidates(n)]
+            return self._race_v1(data, min(
+                (self._assemble_global(data, st) for st in sts), key=len))
         n_chunks = _cdiv(n, cfg.chunk_size)
         arr = np.frombuffer(data, np.uint8)
         S = min(cfg.step_chunks or n_chunks, n_chunks)
@@ -237,6 +329,67 @@ class TorchCodec:
         return self._container(b"".join(payload), n, int(rl.sum()),
                                chunk_bits, np.concatenate(tables)[:n_chunks],
                                lw, (rl, car), zlib.crc32(data))
+
+    def global_candidates(self, n: int) -> list[bool]:
+        """The candidates ``encode`` tries for ``n`` input bytes, as
+        ``whole`` flags in the order that decides a tie."""
+        if (self.config.whole_file
+                and rle_max_encoded_len(n) + 64 <= _WHOLE_MAX_CAP):
+            return [True, False]
+        return [False]
+
+    def run_global_stage(self, x: torch.Tensor, whole: bool) -> dict:
+        """One global-layout candidate's device stage on resident input
+        ((n,) uint8 on the device), without synchronising: the dense
+        payload words, lane words, tables and stream length."""
+        n = x.shape[0]
+        cs, lane, max_chunks = _global_geometry(self.config, n, whole)
+        buf, lw, tables, total = _encode_stream_stage(
+            x, self.config.use_diff, cs, max_chunks, lane)
+        return dict(cs=cs, lane=lane, n=n, payload=_strip_payload(buf, lw),
+                    meta=lw, tables=tables, total=total)
+
+    def _dispatch_global(self, data: bytes, bs, whole: bool) -> dict:
+        """Upload the input and start one candidate's device stage.
+        ``bs`` is the adaptive block size, None in stream mode."""
+        if bs is not None:
+            raise NotImplementedError(
+                "adaptive block RLE comes with ROADMAP.md queue 1 item 7")
+        # a copy: the bytes object's buffer is read-only
+        x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+        return self.run_global_stage(x.to(self.device), whole)
+
+    def _assemble_global(self, data: bytes, st: dict) -> bytes:
+        """Fetch one dispatched candidate and assemble its container; the
+        chunks past the stream's end hold no lane words and drop out."""
+        cs = st["cs"]
+        total = int(st["total"])
+        n_chunks = _cdiv(total, cs)
+        lw = st["meta"].cpu().numpy()[:n_chunks]
+        chunk_bits = (lw.sum(axis=1, dtype=np.int64) * 32).tolist()
+        return self._container(
+            _words_to_wire(st["payload"]), st["n"], total, chunk_bits,
+            st["tables"].cpu().numpy()[:n_chunks], lw, None,
+            zlib.crc32(data), chunk_size=cs, lane=st["lane"])
+
+    def _encode_global(self, data: bytes, bs, whole: bool) -> bytes:
+        return self._assemble_global(data,
+                                     self._dispatch_global(data, bs, whole))
+
+    def _race_v1(self, data: bytes, blob: bytes) -> bytes:
+        """Keep the reference's v1 format when it is strictly smaller:
+        the v3 container's fixed costs (a 43-byte header, a packed table)
+        and its static tables can lose to v1's 9-byte header and
+        per-symbol adaptation on small payloads. ``decode`` tells the two
+        apart by the magic. The v1 encoder is the host C++ runtime; a
+        build or load failure raises, so a different container is never
+        returned quietly."""
+        if (len(data) > self._V1_RACE_MAX_IN
+                or len(blob) > self._V1_RACE_MAX_OUT):
+            return blob
+        cfg = self.config
+        v1 = runtime.v1_compress(data, cfg.use_diff, cfg.use_adapt, cfg.width)
+        return v1 if len(v1) < len(blob) else blob
 
     def _container(self, payload, orig, total, chunk_bits, tables,
                    lane_words, sharded_meta, crc=0, chunk_size=None,
@@ -296,10 +449,6 @@ class TorchCodec:
 
     def _check_supported(self, hdr: dict) -> None:
         flags = hdr["flags"]
-        if not flags & FLAG_SHARDED:
-            raise NotImplementedError(
-                "global-layout containers come with ROADMAP.md queue 1 "
-                "item 6")
         if flags & FLAG_ADAPT:
             raise NotImplementedError(
                 "adaptive containers come with ROADMAP.md queue 1 item 7")
@@ -336,6 +485,8 @@ class TorchCodec:
         step without running any of its compute. Returns (hdr, staged)."""
         hdr = self._parse(blob) if hdr is None else hdr
         self._check_supported(hdr)
+        if not hdr["flags"] & FLAG_SHARDED:
+            raise ValueError("decode_steps requires the sharded layout")
         n_chunks = hdr["n_chunks"]
         S = min(self.config.step_chunks or n_chunks, n_chunks)
         staged = [self._stage_step(blob, hdr, k * S,
@@ -368,11 +519,13 @@ class TorchCodec:
         return self.run_decode_steps(hdr, staged)
 
     def decode_range(self, blob: bytes, start: int, length: int) -> bytes:
-        """Random-access decode of ``[start, start + length)``: only the
-        covering chunks are decoded, each from its manifest row and its
-        stored diff carry."""
+        """Random-access decode of ``[start, start + length)`` (sharded
+        layout only): only the covering chunks are decoded, each from its
+        manifest row and its stored diff carry."""
         hdr = self._parse(blob)
         self._check_supported(hdr)
+        if not hdr["flags"] & FLAG_SHARDED:
+            raise ValueError("decode_range requires the sharded layout")
         if start < 0 or length < 0 or start + length > hdr["orig"]:
             raise ValueError("range out of bounds")
         if length == 0:
@@ -384,17 +537,75 @@ class TorchCodec:
         lo = start - c0 * cs
         return flat[lo: lo + length].tobytes()
 
+    def stage_global(self, blob: bytes, hdr: dict) -> dict:
+        """Host -> device transfer of a global-layout container: every
+        chunk's dense payload words and the manifest, without any
+        compute. A one-chunk container of at most 2 MiB whose lanes
+        divide by 8 is staged as 8 pseudo-chunks that share the one
+        table."""
+        if hdr["flags"] & FLAG_SHARDED:
+            raise ValueError("stage_global requires the global layout")
+        cs, lane, n_chunks = hdr["chunk_size"], hdr["lane"], hdr["n_chunks"]
+        nw = int(hdr["chunk_offs"][-1]) // 4
+        flat = np.frombuffer(blob, ">u4", nw, hdr["payload_off"]).astype(
+            np.uint32)
+        lane_words, tables = hdr["lane_words"], hdr["tables"]
+        n_lanes = cs // lane
+        rows, rcs = n_chunks, cs
+        if (n_chunks == 1 and n_lanes % 8 == 0 and n_lanes >= 8
+                and cs <= _SINGLE_MAX):
+            rows, rcs = 8, cs // 8
+            tables = np.tile(tables, (8, 1))
+            lane_words = np.ascontiguousarray(lane_words.reshape(8, -1))
+        counts = np.clip(hdr["total"] - np.arange(rows, dtype=np.int64) * rcs,
+                         0, rcs).astype(np.int32)
+        dev = self.device
+        return {"rcs": rcs,
+                "flat": torch.from_numpy(flat.view(np.int32)).to(dev),
+                "lw": torch.from_numpy(lane_words).to(dev),
+                "tables": torch.from_numpy(tables).to(dev),
+                "counts": torch.from_numpy(counts).to(dev)}
+
+    def run_global_decode(self, hdr: dict, st: dict):
+        """The decode compute of a staged global-layout container:
+        ((orig + 8,) uint8, the decoded length) on the device, without
+        synchronising."""
+        # repad is per lane, so the pseudo-chunk rows re-pad as they are
+        words = kernels.repad_words(st["flat"], st["lw"], hdr["wl_bucket"])
+        chunks = canonical_decode_batch(
+            words, st["tables"], st["lw"], st["counts"], lane=hdr["lane"],
+            out_len=st["rcs"], max_len=hdr["max_len_bucket"])
+        return _decode_stream_tail(chunks.reshape(-1), hdr["total"],
+                                   hdr["orig"] + 8,
+                                   bool(hdr["flags"] & FLAG_DIFF))
+
+    def _decode_global(self, blob: bytes, hdr: dict) -> torch.Tensor:
+        out, m = self.run_global_decode(hdr, self.stage_global(blob, hdr))
+        if int(m) != hdr["orig"]:
+            raise ValueError("corrupt v3 container: size mismatch")
+        return out
+
     def decode(self, blob: bytes) -> bytes:
         if blob[:6] != V3_MAGIC:
-            raise NotImplementedError(
-                "only v3 containers decode in this slice; v1 and v2 come "
-                "with ROADMAP.md queue 1 item 6")
+            # encode() may have returned a v1 blob (the race), and files
+            # of the reference binary are v1 too
+            if is_v2(blob):
+                return runtime.v2_decompress(blob)
+            # the native decoder trusts its input: hold the 9-byte header
+            # against the blob first (a symbol costs at least one bit)
+            count, _, _ = parse_huff_header(blob)
+            if count > 8 * (len(blob) - HUFF_HEADER_BYTES):
+                raise ValueError("invalid Huffman coding file contents")
+            return runtime.v1_decompress(blob)
         hdr = self._parse(blob)
         if hdr["orig"] == 0:
             return b""
-        parts = self.decode_steps(blob, hdr)
-        flat = torch.cat(parts).cpu().numpy()
-        result = flat[: hdr["orig"]].tobytes()
+        self._check_supported(hdr)
+        if hdr["flags"] & FLAG_SHARDED:
+            flat = torch.cat(self.decode_steps(blob, hdr))
+        else:
+            flat = self._decode_global(blob, hdr)
+        result = flat.cpu().numpy()[: hdr["orig"]].tobytes()
         if zlib.crc32(result) != hdr["crc"]:
             raise ValueError("v3 container integrity check failed (crc32)")
         return result

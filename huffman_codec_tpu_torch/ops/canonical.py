@@ -1,8 +1,9 @@
 """Per-chunk two-pass canonical Huffman over (C, L) chunk rows.
 
 Encode: byte histogram (kernel), exact length-limited code lengths by
-package-merge, canonical codes, then the lane pack (kernel). Decode: the
-lane decode kernel over the fixed-stride lane layout. The code lengths
+package-merge, canonical codes, then the lane pack (kernel). Decode: one
+of the two lane decode kernels over the fixed-stride lane layout (one
+thread per lane, or one block per lane for few fat lanes). The code lengths
 must equal the JAX package's bit for bit, since they go on the wire and
 decide every codeword; ``build_lengths_pm`` therefore keeps its exact
 tie rules (stable leaf order, leaf before package at equal weight).
@@ -128,12 +129,17 @@ def canonical_decode_batch(words: torch.Tensor, lens_tables: torch.Tensor,
                            max_len: int = MAX_LEN) -> torch.Tensor:
     """Decode padded lane words (C, n_lanes * Wl) int32 back to
     (C, out_len) uint8 symbols; lane k holds symbols [k*lane, (k+1)*lane)
-    of its chunk, clipped by the chunk's symbol count ``lengths``."""
+    of its chunk, clipped by the chunk's symbol count ``lengths``.
+
+    Fat lanes (``lane > 4096``: the whole-file container, a few lanes of
+    up to 32768 symbols) go to the block-per-lane kernel, every other
+    geometry to the thread-per-lane kernel; both compute one function."""
     C, W = words.shape
     n_lanes = lane_words.shape[1]
     if out_len <= 0:
         raise ValueError("canonical_decode_batch needs out_len > 0")
-    out = kernels.lane_decode(words.view(C, n_lanes, W // n_lanes),
-                              lens_tables, lengths.to(torch.int32),
-                              lane=lane, max_len=max_len)
+    fat = lane > 4096 and lane % 128 == 0
+    decode = kernels.lane_decode_lanemajor if fat else kernels.lane_decode
+    out = decode(words.view(C, n_lanes, W // n_lanes), lens_tables,
+                 lengths.to(torch.int32), lane=lane, max_len=max_len)
     return out[:, :out_len]

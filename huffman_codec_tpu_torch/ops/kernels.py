@@ -1,4 +1,5 @@
-"""The six hand-written CUDA kernels of the sharded canonical round trip.
+"""The seven hand-written CUDA kernels of the sharded and the global
+canonical round trips.
 
 Each kernel has three parts here:
 
@@ -329,6 +330,47 @@ lane_decode.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# 7. canonical lane decode for few fat lanes
+# ---------------------------------------------------------------------------
+
+
+def lane_decode_lanemajor_plain(buf, lens_tables, lengths, lane: int,
+                                max_len: int):
+    """Plain version of ``lane_decode_lanemajor``: the function is
+    ``lane_decode``'s, so it shares that plain version. Its loop runs
+    ``lane`` steps of small ops, so keep ``lane`` small on the CPU."""
+    return lane_decode_plain(buf, lens_tables, lengths, lane, max_len)
+
+
+def lane_decode_lanemajor(buf: torch.Tensor, lens_tables: torch.Tensor,
+                          lengths: torch.Tensor, lane: int,
+                          max_len: int = 31):
+    """Canonical decode with ``lane_decode``'s contract for few fat lanes
+    (the whole-file container: up to 112 lanes of up to 32768 symbols):
+    one block per lane instead of one thread per lane. Any C and nl;
+    needs lane % 128 == 0 and 1 <= max_len <= 31."""
+    if lane % 128 or not 1 <= max_len <= 31:
+        raise ValueError("lane_decode_lanemajor: lane must divide by 128, "
+                         "1 <= max_len <= 31")
+    if buf.device.type == "cpu":
+        return lane_decode_lanemajor_plain(buf, lens_tables, lengths, lane,
+                                           max_len)
+    dev = _check_cuda("lane_decode_lanemajor", (buf, torch.int32, 3),
+                      (lens_tables, torch.uint8, 2), (lengths, torch.int32, 1))
+    C, nl, wb = buf.shape
+    out = torch.empty((C, nl * lane), dtype=torch.uint8, device=dev)
+    if C * nl:
+        _launch("lane_decode_lm", "lane_decode_lm_launch",
+                (buf, lens_tables, lengths, out), (C, nl, wb, lane, max_len),
+                dev)
+        lane_decode_lanemajor.launches += 1
+    return out
+
+
+lane_decode_lanemajor.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # 6. MNP-5 expansion + diff revert
 # ---------------------------------------------------------------------------
 
@@ -371,7 +413,7 @@ rle_expand.launches = 0
 
 
 KERNELS = (rle_diff_encode, histogram256, lane_pack, repad_words,
-           lane_decode, rle_expand)
+           lane_decode, rle_expand, lane_decode_lanemajor)
 
 
 def reset_launches() -> None:

@@ -107,7 +107,7 @@ def test_config_crosses_packages():
 
 
 @pytest.mark.parametrize("cfg", [
-    CodecConfig(),  # global layout
+    CodecConfig(use_adapt=True),  # global layout, adaptive
     CodecConfig(layout="sharded", use_adapt=True),
     CodecConfig(layout="sharded", entropy="fgk"),
 ])
@@ -124,15 +124,18 @@ def test_invalid_configs_raise_value_error():
 
 
 def test_non_v3_input_raises():
+    # v1 and v2 blobs go to the host runtime; malformed ones raise
+    from huffman_codec_tpu_torch.native.runtime import NativeError
+
     codec = TorchCodec(device="cpu")
-    with pytest.raises(NotImplementedError):
-        codec.decode(b"\x10" + bytes(8) + b"\x00garbage")  # v1 header shape
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
+        codec.decode(b"\x10" + bytes(7) + b"\x00g")  # 16 symbols in 1 byte
+    with pytest.raises(NativeError):
         codec.decode(b"HCTPU\x02" + bytes(40))
 
 
 @pytest.mark.parametrize("hdr", [
-    {"flags": 0, "entropy": 1},  # global layout
+    {"flags": tch.FLAG_ADAPT, "entropy": 1},  # global layout, adaptive
     {"flags": tch.FLAG_SHARDED | tch.FLAG_ADAPT, "entropy": 1},
     {"flags": tch.FLAG_SHARDED, "entropy": 0},  # FGK
 ])

@@ -94,3 +94,60 @@ def test_gpu_container_equals_cpu_plain_path(cuda, use_diff):
     assert gpu.decode(blob) == data
     assert gpu.decode_range(blob, CS - 7, 20) == data[CS - 7: CS + 13]
     assert gpu.encode(b"") == cpu.encode(b"")
+
+
+def _fat_lanes(dev, lane, nl):
+    """Chunks of ``nl`` fat lanes packed and re-padded for the decoders: a
+    full random chunk, a partial last lane, an empty chunk, a one-symbol
+    table, two symbols one byte short of full."""
+    rng = np.random.default_rng(9)
+    L = nl * lane
+    i = np.arange(L)
+    rows = [rng.integers(0, 256, L), ((i // 512) * 2 + i % 512 // 3) & 255,
+            np.zeros(L), np.full(L, 65), rng.integers(0, 2, L)]
+    lens = [L, L - lane + 1000, 0, L, L - 1]
+    chunks = torch.from_numpy(np.stack(rows).astype(np.uint8)).to(dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    lt = tcan.build_lengths_pm(K.histogram256(chunks, ln))
+    tables = (tcan.assign_codes(lt) | (lt << 26)).to(torch.int32)
+    w, b = K.lane_pack(chunks, ln, tables, lane)
+    lw = ((b + 31) >> 5).to(torch.int32)
+    col = torch.arange(w.shape[2], device=dev)
+    flat = w[col[None, None, :] < lw[:, :, None]].contiguous()
+    wb = max(8, -(-int(lw.max()) // 16) * 16)
+    buf = K.repad_words(flat, lw, wb).view(len(rows), nl, wb)
+    return chunks, ln, buf, lt.to(torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane,nl", [(8192, 2), (8192, 1), (4224, 3)])
+def test_lanemajor_kernel_matches_plain(cuda, lane, nl):
+    chunks, ln, buf, lt8 = _fat_lanes(cuda, lane, nl)
+    K.reset_launches()
+    d = K.lane_decode_lanemajor(buf, lt8, ln, lane, 31)
+    assert K.launch_counts()["lane_decode_lanemajor"] == 1
+    assert torch.equal(d, K.lane_decode_lanemajor_plain(buf, lt8, ln, lane,
+                                                         31))
+    assert torch.equal(d, K.lane_decode(buf, lt8, ln, lane, 31))
+    valid = torch.arange(nl * lane, device=cuda)[None, :] < ln[:, None]
+    assert torch.equal(d, torch.where(valid, chunks, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_diff", [False, True])
+@pytest.mark.parametrize("n", [1 << 18, (1 << 18) + 4321])
+def test_gpu_global_container_equals_cpu_plain_path(cuda, use_diff, n):
+    i = np.arange(n)
+    rng = np.random.default_rng(10)
+    data = (((i // 512) * 3 + (i % 512) * 2) // 5
+            + rng.integers(-2, 3, n) & 255).astype(np.uint8).tobytes()
+    cfg = CodecConfig(use_diff=use_diff)
+    gpu = TorchCodec(cfg)
+    K.reset_launches()
+    blob = gpu.encode(data)
+    assert blob == TorchCodec(cfg, device="cpu").encode(data)
+    assert gpu.decode(blob) == data
+    assert blob[:6] == b"HCTPU\x03"  # too large for the v1 race
+    hdr = gpu._parse(blob)
+    fat = hdr["n_chunks"] == 1 and hdr["lane"] > 4096
+    assert K.launch_counts()["lane_decode_lanemajor"] == int(fat)
