@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the seven CUDA kernels from huffman_codec_tpu_torch/csrc and the
-host C++ runtime of the v1 format, and drives two paths.
+Builds the CUDA kernels from huffman_codec_tpu_torch/csrc and the host C++
+runtime of the v1 format, and drives three paths.
 
 The sharded streaming path: holds the six kernels it runs against their
 plain PyTorch versions on the card (one full step of 256 x 64 KiB chunks,
@@ -21,6 +21,19 @@ batch of edge cases), round-trips 256 KiB, 1.25 MiB, 2.5 MiB and 64 MiB
 with the diff model on and off, runs the v1 race on a small input, checks
 containers against the plain path run on the CPU, and times the fat-lane
 kernel, the device encode and decode and the peak device memory.
+
+Adaptive block RLE (``use_adapt``), in both layouts: holds the RLE
+kernel's tile mode against its plain version (a 256-band step of 128 x 512
+bands at block sizes 8, 32 and 128, and a batch of edge cases), the
+grouped manifest's walk kernel against its plain version, and every kernel
+the adaptive paths launch against its plain version at the shapes they
+launch it (all 1024 bands in one call; the tile rows of the decodes; the
+rows of the search's histogram), round-trips a
+64 MiB sharded-adaptive input (1024 bands) and one of 16 bands plus a
+5-row tail, 256 KiB and 2.5 MiB global-adaptive inputs with the diff model
+on and off and both candidates, reads a range across a band border, checks
+containers against the plain path run on the CPU, and times the search,
+the stages of the encode and the decode, and the peak device memory.
 
 Each path's kernel launches are counted from zero over its round trips.
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
@@ -501,6 +514,549 @@ def global_path(K, TorchCodec, CodecConfig, x, errs):
     return launches, k7[GLOBAL_SIZES[2]]
 
 
+ADAPT_W, BAND_H = 512, 128  # 128 x 512 bands: one 64 KiB chunk each
+
+
+def tile_edge_rows(dev):
+    """Rows of one band's length for the tile mode: a run crossing many
+    tile borders, one repeated byte, runs of exactly 258 and 259 inside a
+    tile, noise, and two symbols."""
+    rng = np.random.default_rng(SEED + 11)
+    r0 = gradient_input(CS, SEED + 12)
+    r0[CS // 2:] = 7
+    r2 = gradient_input(CS, SEED + 13)
+    r2[10:268] = 3
+    r2[300:559] = 4
+    rows = [r0, np.full(CS, 65, np.uint8), r2,
+            rng.integers(0, 256, CS, dtype=np.uint8),
+            rng.integers(0, 2, CS, dtype=np.uint8)]
+    return torch.from_numpy(np.stack(rows)).to(dev)
+
+
+def tile_mode_check(K, rows, lens, tile, cap, errs):
+    zero = torch.zeros(rows.shape[0], dtype=torch.uint8, device=rows.device)
+    s, ln = K.rle_diff_encode(rows, lens, zero, False, cap, tile=tile)
+    torch.cuda.synchronize()
+    ps, pln = K.rle_diff_encode_plain(rows, lens, zero, False, cap, tile)
+    same(K.TILE_MODE, s, ps, errs)
+    same(K.TILE_MODE + ".lens", ln, pln, errs)
+    return s, ln
+
+
+def tile_rows_check(K, A, streams, tile_lens, dirs, want, w, h, bs, errs):
+    """The adaptive decode's tile rows as ``adapt_decode_bands`` builds
+    them from (B, L) streams: ``rle_expand`` (no diff, ``out_len`` one
+    tile) held against its plain version at that shape, and the placed
+    tiles against the (B, h * w) matrices ``want``. Returns the shape of
+    the rows and the kernel's time."""
+    from huffman_codec_tpu_torch.ops.rle import rle_classify
+
+    enc, rows_len = A._cut_tile_rows(streams, tile_lens, bs)
+    ic = rle_classify(enc, rows_len)
+    zero = torch.zeros(enc.shape[0], dtype=torch.uint8, device=enc.device)
+    tiles = K.rle_expand(enc, ic, rows_len, zero, bs * bs, False)
+    torch.cuda.synchronize()
+    same("rle_expand", tiles,
+         K.rle_expand_plain(enc, ic, rows_len, zero, bs * bs, False), errs)
+    same("rle_expand.tiles_round_trip",
+         A._place_tiles(tiles, dirs, w, h, bs), want, errs)
+    ms = cuda_ms(lambda: K.rle_expand(enc, ic, rows_len, zero, bs * bs,
+                                      False), reps=10)
+    return tuple(enc.shape), ms
+
+
+def emission_rows_check(K, A, matrix, w, h, bs, errs):
+    """The block-size score's emission values at block size ``bs``, in the
+    rows of 8192 that ``_emission_histogram`` hands to ``histogram256``:
+    the kernel held against its plain version on them. Returns the rows'
+    shape, the kernel's time and its bytes bound."""
+    hor, ver, lens = A._gather_tiles(matrix.reshape(-1), w, h, bs)
+    h_sz, h_vals = A._scan_emissions(hor, lens)
+    v_sz, v_vals = A._scan_emissions(ver, lens)
+    vals = torch.where((h_sz <= v_sz)[:, None], h_vals, v_vals).reshape(-1)
+    del hor, ver, h_vals, v_vals
+    if vals.shape[0] % 8192:
+        vals = torch.cat([vals, vals.new_zeros(-vals.shape[0] % 8192)])
+    rows = vals.view(-1, 8192)
+    full = torch.full((rows.shape[0],), 8192, dtype=torch.int32,
+                      device=rows.device)
+    got = K.histogram256(rows, full)
+    torch.cuda.synchronize()
+    same("histogram256", got, K.histogram256_plain(rows, full), errs)
+    ms = cuda_ms(lambda: K.histogram256(rows, full), reps=10)
+    nbytes = rows.numel() + 4 * rows.shape[0] + 1024 * rows.shape[0]
+    return tuple(rows.shape), ms, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def sharded_adapt_chain(K, A, codec, xd, bs, cap, errs):
+    """The sharded-adaptive band stage and its decode on every full band
+    of the resident input in one call, as ``run_sharded_adapt_stage`` and
+    ``run_adapt_bands`` chain them, each kernel held against its plain
+    version at that shape (tolerance 0). Returns the kernels' times."""
+    from huffman_codec_tpu_torch.models.chunked import (
+        _band_winner_order, _strip_payload)
+    from huffman_codec_tpu_torch.ops.canonical import assign_codes, build_lengths_pm
+    from huffman_codec_tpu_torch.ops.diff import diff_apply
+
+    cfg = codec.config
+    w, cs = cfg.width, cfg.chunk_size
+    nb = xd.shape[0] // cs
+    bands = xd[: nb * cs].view(nb, cs)
+    car = torch.cat([xd.new_zeros(1), xd[cs - 1:: cs]])[:nb].contiguous()
+    work = diff_apply(bands, car)
+    win, dirs, tl = _band_winner_order(work, w, cs // w, bs)
+    full = torch.full((nb,), cs, dtype=torch.int32, device=xd.device)
+    zero = torch.zeros(nb, dtype=torch.uint8, device=xd.device)
+    st, rl = tile_mode_check(K, win, full, bs * bs, cap, errs)
+    same(K.TILE_MODE + ".vs_tile_lens", rl, tl.sum(dim=1).to(torch.int32),
+         errs)
+    counts = K.histogram256(st, rl)
+    torch.cuda.synchronize()
+    same("histogram256", counts, K.histogram256_plain(st, rl), errs)
+    lens = build_lengths_pm(counts)
+    tables = (assign_codes(lens) | (lens << 26)).to(torch.int32)
+    buf, bits = K.lane_pack(st, rl, tables, LANE)
+    torch.cuda.synchronize()
+    pbuf, pbits = K.lane_pack_plain(st, rl, tables, LANE)
+    same("lane_pack", buf, pbuf, errs)
+    same("lane_pack.bits", bits, pbits, errs)
+    del pbuf
+    lw = ((bits + 31) >> 5).to(torch.int32)
+    flat = _strip_payload(buf, lw).contiguous()
+    wb = min(max(8, -(-int(lw.max()) // 16) * 16), K.lane_words_cap(LANE))
+    padded = K.repad_words(flat, lw, wb)
+    torch.cuda.synchronize()
+    same("repad_words", padded, K.repad_words_plain(flat, lw, wb), errs)
+    max_len = next(b for b in BUCKETS if b >= int(lens.max()))
+    lt = lens.to(torch.uint8)
+    pb = padded.view(nb, cap // LANE, wb)
+    dec = K.lane_decode(pb, lt, rl, LANE, max_len)
+    torch.cuda.synchronize()
+    same("lane_decode", dec, K.lane_decode_plain(pb, lt, rl, LANE, max_len),
+         errs)
+    same("lane_decode.vs_streams", dec, st, errs)
+    shape, t_exp = tile_rows_check(K, A, dec, tl, dirs, work, w, cs // w, bs,
+                                   errs)
+    times = {
+        K.TILE_MODE: cuda_ms(lambda: K.rle_diff_encode(
+            win, full, zero, False, cap, tile=bs * bs), reps=10),
+        "histogram256": cuda_ms(lambda: K.histogram256(st, rl), reps=10),
+        "lane_pack": cuda_ms(lambda: K.lane_pack(st, rl, tables, LANE),
+                             reps=10),
+        "repad_words": cuda_ms(lambda: K.repad_words(flat, lw, wb), reps=10),
+        "lane_decode": cuda_ms(lambda: K.lane_decode(pb, lt, rl, LANE,
+                                                     max_len), reps=10),
+        f"rle_expand {shape}": t_exp,
+    }
+    return nb, times
+
+
+def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
+    """Adaptive block RLE in both layouts: kernel checks, counted round
+    trips, containers against the CPU plain path, timings. Returns (the
+    launch counts of the 64 MiB sharded-adaptive round trip, the rows of
+    the tile mode and of the group walk for the kernels line)."""
+    from huffman_codec_tpu_torch.models.chunked import (
+        _band_winner_order, _sharded_cap)
+    from huffman_codec_tpu_torch.ops import adapt as A
+    from huffman_codec_tpu_torch.ops.canonical import (
+        canonical_decode_batch, canonical_encode_batch)
+    from huffman_codec_tpu_torch.ops.diff import diff_apply, diff_revert
+    from huffman_codec_tpu_torch.ops.rle import (
+        rle_classify, rle_encoded_size, rle_max_encoded_len)
+
+    dev = torch.device("cuda")
+    cap = _sharded_cap(CS, "canonical", LANE)
+    n_in = x.size
+
+    # -- the tile mode against its plain version ------------------------------
+    step = torch.from_numpy(x[: STEP * CS].copy()).to(dev).view(STEP, CS)
+    car = torch.cat([step.new_zeros(1), step[:-1, -1]])
+    work = diff_apply(step, car)
+    full = torch.full((STEP,), CS, dtype=torch.int32, device=dev)
+    wins = {}
+
+    def band_step_check(b):
+        win, _, tl = _band_winner_order(work, ADAPT_W, BAND_H, b)
+        s, ln = tile_mode_check(K, win, full, b * b, cap, errs)
+        same(K.TILE_MODE + ".vs_tile_lens", ln, tl.sum(dim=1).to(torch.int32),
+             errs)
+        wins[b] = (win, s, ln)
+
+    for b in (8, 32, 128):
+        band_step_check(b)
+    edge = tile_edge_rows(dev)
+    edge_lens = torch.tensor([CS, CS, CS, CS, 1000], dtype=torch.int32,
+                             device=dev)
+    for tile in (64, 1024, 16384, CS):  # CS: the whole row is one tile
+        tile_mode_check(K, edge, edge_lens, tile, cap, errs)
+        tile_mode_check(K, edge[2:3].clone(), edge_lens[2:3].clone(), tile,
+                        cap, errs)  # one row
+    log("tile mode vs plain: 256 bands at T = 64, 1024, 16384 and the edge "
+        "batch at T = 64, 1024, 16384, 65536 all equal; max abs err",
+        max(v for k, v in errs.items() if k.startswith(K.TILE_MODE)))
+
+    # -- the grouped manifest's walk against its plain version ---------------
+    img = diff_apply(torch.from_numpy(x[: 1 << 18].copy()).to(dev))
+    walk = {}
+    for bs in (8, 16):
+        stream, total, _, tl = A.adapt_encode_fixed(img, 512, 512, bs,
+                                                    with_header=False)
+        offs = (torch.cumsum(tl, 0) - tl)[:: A.GROUP_K].to(
+            torch.int32).contiguous()
+        sizes = torch.full((tl.shape[0],), bs * bs, dtype=torch.int32,
+                           device=dev)
+        gcap = A.GROUP_K * rle_max_encoded_len(bs * bs)
+        args = (stream, offs, sizes, int(total), gcap)
+        got = K.group_tile_lens(*args)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = K.group_tile_lens_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        same("group_tile_lens", got, want, errs)
+        same("group_tile_lens.vs_tile_lens", got, tl, errs)
+        ms = cuda_ms(lambda: K.group_tile_lens(*args), reps=10)
+        # the stream and the manifest read once, the lengths written once;
+        # a dozen integer operations a stream byte
+        bound, by = bound_of(int(total) + 4 * offs.numel()
+                             + 8 * sizes.numel(), 12 * int(total))
+        walk[bs] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        log(f"group_tile_lens 512 x 512 bs {bs} ({offs.numel()} groups, "
+            f"{int(total)} stream bytes): {ms:.4f} ms, plain {plain_ms:.0f} "
+            f"ms (host clock, one run), bound {bound:.6f} ms by {by}; equal "
+            "to the plain version and to the encoder's tile lengths")
+    del img
+
+    # -- sharded adaptive: counted 64 MiB round trip ---------------------------
+    cfg = CodecConfig(use_adapt=True, use_diff=True, width=ADAPT_W,
+                      chunk_size=CS, lane=LANE, layout="sharded")
+    codec = TorchCodec(cfg)
+    data = x.tobytes()
+    K.reset_launches()
+    t = time.perf_counter()
+    blob = codec.encode(data)
+    e2e_enc = time.perf_counter() - t
+    enc_counts = K.launch_counts()
+    t = time.perf_counter()
+    back = codec.decode(blob)
+    e2e_dec = time.perf_counter() - t
+    if back != data:
+        raise AssertionError("64 MiB sharded-adaptive round trip failed")
+    launches = K.launch_counts()
+    hdr = codec._parse(blob)
+    bs = hdr["bs"]
+    n_cands = len(A.candidate_sizes(ADAPT_W, BAND_H))
+    # all 1024 full bands in one call of the tile mode; the
+    # search's histogram once a candidate, the entropy stage's once; the
+    # decode expands every band's tiles in one launch
+    want = {K.TILE_MODE: 1, "histogram256": n_cands + 1, "lane_pack": 1,
+            "repad_words": 1, "lane_decode": 1, "rle_expand": 1,
+            "rle_diff_encode": 0, "lane_decode_lanemajor": 0,
+            "group_tile_lens": 0}
+    if launches != want or enc_counts[K.TILE_MODE] != 1:
+        raise AssertionError(f"sharded-adaptive launches {launches}, the "
+                             f"code path implies {want}")
+    log(f"sharded adaptive 64 MiB diff=True: bs {bs}, {hdr['n_chunks']} "
+        f"bands, {len(blob)} B, {8 * len(blob) / n_in:.4f} bpc, round trip "
+        f"exact, crc ok; end to end encode {e2e_enc:.3f} s, decode "
+        f"{e2e_dec:.3f} s; launches {launches}")
+
+    # -- every kernel of that round trip against its plain version, at the
+    #    shapes it launched them: all 1024 bands in one call -------------------
+    xd = torch.from_numpy(x).to(dev)
+    nb_all, t_all = sharded_adapt_chain(K, A, codec, xd, bs, cap, errs)
+    log(f"sharded adaptive, all {nb_all} bands in one call, bs {bs}: the "
+        "tile mode, kernels 2-5 and rle_expand on the tile rows equal their "
+        "plain versions; tiles placed back equal the input (ms):",
+        {k: round(v, 4) for k, v in t_all.items()})
+    rows_all = n_in // ADAPT_W
+    sx = diff_apply(xd)
+    shp, ms_h, bound_h = emission_rows_check(K, A, sx, ADAPT_W, rows_all, bs,
+                                             errs)
+    log(f"histogram256 on the search's emission rows {shp} (64 MiB matrix, "
+        f"bs {bs}): equal to its plain version, {ms_h:.4f} ms, bound "
+        f"{bound_h:.4f} ms by bytes")
+    del xd, sx
+    torch.cuda.empty_cache()
+
+    # -- 16 bands and a 5-row tail; a range across a band border --------------
+    n_tail = 16 * CS + 5 * ADAPT_W
+    tail = data[:n_tail]
+    K.reset_launches()
+    tblob = codec.encode(tail)
+    if K.launch_counts()[K.TILE_MODE] != 1:  # the tail band: torch ops
+        raise AssertionError("the 5-row tail band must not reach the tile "
+                             "mode kernel")
+    if codec.decode(tblob) != tail:
+        raise AssertionError("sharded-adaptive tail round trip failed")
+    thdr = codec._parse(tblob)
+    for start, length in ((CS - 1000, 3000), (15 * CS + 100, CS + 2000),
+                          (n_tail - 700, 700)):
+        if codec.decode_range(tblob, start, length) != \
+                tail[start:start + length]:
+            raise AssertionError(f"decode_range({start}, {length}) differs")
+    if TorchCodec(cfg, device="cpu").encode(tail) != tblob:
+        raise AssertionError("sharded-adaptive GPU container differs from "
+                             "the CPU plain path")
+    log(f"sharded adaptive {n_tail} B (16 bands + a 5-row tail): bs "
+        f"{thdr['bs']}, {len(tblob)} B, round trip exact, three ranges "
+        "across band borders exact, GPU container == CPU plain container")
+
+    # -- global adaptive: 256 KiB and 2.5 MiB ----------------------------------
+    gblobs = {}
+    K.reset_launches()
+    for n in (GLOBAL_SIZES[0], GLOBAL_SIZES[2]):
+        gdata = x[:n].tobytes()
+        for d in (False, True):
+            gc = TorchCodec(CodecConfig(use_adapt=True, use_diff=d,
+                                        width=ADAPT_W))
+            t = time.perf_counter()
+            gblob = gc.encode(gdata)
+            e2e_enc = time.perf_counter() - t
+            t = time.perf_counter()
+            if gc.decode(gblob) != gdata:
+                raise AssertionError(f"global adaptive round trip failed "
+                                     f"({n} B, diff={d})")
+            e2e_dec = time.perf_counter() - t
+            gh = gc._parse(gblob)
+            sizes = {}
+            for whole in gc.global_candidates(n):
+                cand = gc._encode_global(gdata, gh["bs"], whole)
+                if gc.decode(cand) != gdata:
+                    raise AssertionError(f"global adaptive candidate failed "
+                                         f"({n} B, diff={d}, whole={whole})")
+                ch = gc._parse(cand)
+                sizes["whole-file" if whole else "chunked"] = (
+                    len(cand), bool(ch["flags"] & 0x10))
+            if len(gblob) != min(v[0] for v in sizes.values()):
+                raise AssertionError("encode() did not keep the smaller "
+                                     "candidate")
+            log(f"global adaptive {n} B diff={d}: bs {gh['bs']}, "
+                f"{len(gh['dirs'])} tiles, candidates (bytes, grouped "
+                f"manifest) {sizes}, kept {len(gblob)} B, "
+                f"{8 * len(gblob) / n:.4f} bpc, round trips exact, crc ok; "
+                f"end to end encode {e2e_enc:.3f} s, decode {e2e_dec:.3f} s")
+            gblobs[(n, d)] = gblob
+    # a grouped manifest, whatever the search chose: bs 8 at 256 KiB
+    gc = TorchCodec(CodecConfig(use_adapt=True, use_diff=True, width=ADAPT_W))
+    small = x[: GLOBAL_SIZES[0]].tobytes()
+    walks = K.launch_counts()["group_tile_lens"]
+    g8 = gc._encode_global(small, 8, True)
+    if not gc._parse(g8)["flags"] & 0x10 or gc.decode(g8) != small:
+        raise AssertionError("grouped-manifest round trip failed")
+    glaunches = K.launch_counts()
+    if glaunches["group_tile_lens"] != walks + 1:
+        raise AssertionError("the grouped decode must launch the walk kernel")
+    log("global adaptive launches (four encode() round trips, their "
+        "candidates and one grouped round trip):", glaunches)
+    for d in (False, True):
+        cc = TorchCodec(CodecConfig(use_adapt=True, use_diff=d,
+                                    width=ADAPT_W), device="cpu")
+        if cc.encode(small) != gblobs[(GLOBAL_SIZES[0], d)]:
+            raise AssertionError("global adaptive GPU container differs "
+                                 f"from the CPU plain path (diff={d})")
+    if TorchCodec(CodecConfig(use_adapt=True, use_diff=True, width=ADAPT_W),
+                  device="cpu")._encode_global(small, 8, True) != g8:
+        raise AssertionError("grouped GPU container differs from the CPU "
+                             "plain path")
+    log(f"global adaptive 256 KiB: bs 8 grouped manifest round trip exact "
+        f"({len(g8)} B); GPU containers == CPU plain containers, diff on "
+        "and off and grouped")
+
+    # -- the global-adaptive decodes' tile rows and the search's histogram
+    #    rows against the plain versions, at the block sizes those paths chose --
+    for n in (GLOBAL_SIZES[0], GLOBAL_SIZES[2]):
+        h = n // ADAPT_W
+        raw = torch.from_numpy(x[:n].copy()).to(dev)
+        for d in (False, True):
+            b = gc._parse(gblobs[(n, d)])["bs"]  # what the search chose
+            img = diff_apply(raw) if d else raw
+            stream, _, dirs, tl = A.adapt_encode_fixed(img, ADAPT_W, h, b,
+                                                       with_header=False)
+            shp, ms_e = tile_rows_check(K, A, stream[None, :], tl[None, :],
+                                        dirs[None, :], img[None, :], ADAPT_W,
+                                        h, b, errs)
+            hshp, ms_h, _ = emission_rows_check(K, A, img, ADAPT_W, h, b, errs)
+            log(f"global adaptive {n} B diff={d} bs {b}: rle_expand on tile "
+                f"rows {shp} -> {b * b} B each and histogram256 on emission "
+                f"rows {hshp} equal their plain versions; {ms_e:.4f} ms and "
+                f"{ms_h:.4f} ms")
+    del raw, img, stream
+
+    # -- times: the tile mode at one 256-band step ------------------------------
+    if bs not in wins:  # the block size the search chose
+        band_step_check(bs)
+    win, s_b, ln_b = wins[bs]
+    zero = torch.zeros(STEP, dtype=torch.uint8, device=dev)
+    sum_out = int(ln_b.sum())
+    # the bands read once, every band's stream and its length written once
+    # (the kernel also zero-fills each row to ``cap``: its choice, not work
+    # the function needs, so the padding is shown apart)
+    nbytes = STEP * CS + 5 * STEP + sum_out + 4 * STEP
+    padded_bytes = nbytes - sum_out + STEP * cap
+    bound, by = bound_of(nbytes, 12 * STEP * CS)
+    per_t = {}
+    for b in wins:
+        w_b = wins[b][0]
+        per_t[b * b] = cuda_ms(lambda: K.rle_diff_encode(
+            w_b, full, zero, False, cap, tile=b * b), reps=20, warm=3)
+    ms = per_t[bs * bs]
+    plain_ms = cuda_ms(lambda: K.rle_diff_encode_plain(
+        win, full, zero, False, cap, bs * bs), reps=2, warm=1)
+    log(f"{K.TILE_MODE} 256 bands, T = {bs * bs}: {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {by} ({nbytes} B: "
+        f"{STEP * CS} read, {sum_out} stream bytes written; with the rows "
+        f"zero-padded to {cap} it moves {padded_bytes} B, "
+        f"{padded_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); by T: "
+        + ", ".join(f"{t}: {v:.4f}" for t, v in per_t.items()))
+    row_1b = {"name": K.TILE_MODE, "route": "cuda",
+              "source": "huffman_codec_tpu_torch/csrc/rle_encode.cu",
+              "replaces": "huffman_codec_tpu/ops/pallas_kernels.py:944",
+              "launches": launches[K.TILE_MODE],
+              "max_abs_err": max(v for k, v in errs.items()
+                                 if k.startswith(K.TILE_MODE)),
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+              "bound_by": by, "library_ms": None}
+    row_walk = {"name": "group_tile_lens", "route": "cuda",
+                "source": "huffman_codec_tpu_torch/csrc/group_tile_lens.cu",
+                "replaces": "huffman_codec_tpu/ops/adapt.py:159 (an XLA "
+                            "scan, no TPU kernel)",
+                "launches": glaunches["group_tile_lens"],
+                "max_abs_err": max(v for k, v in errs.items()
+                                   if k.startswith("group_tile_lens")),
+                **walk[8], "library_ms": None}
+
+    # -- times: the sharded-adaptive stages at one 256-band step ---------------
+    hor, ver, _ = A._gather_tiles(work, ADAPT_W, BAND_H, bs)
+    T = bs * bs
+    tfull = torch.full((hor.shape[0] * hor.shape[1],), T, dtype=torch.int32,
+                       device=dev)
+    enc_stages = {
+        "diff_apply": lambda: diff_apply(step, car),
+        "tile reorder (both orders)":
+            lambda: A._gather_tiles(work, ADAPT_W, BAND_H, bs),
+        "size pass (both orders)":
+            lambda: (rle_encoded_size(hor.reshape(-1, T), tfull),
+                     rle_encoded_size(ver.reshape(-1, T), tfull)),
+        "reorder + sizes + pick":
+            lambda: _band_winner_order(work, ADAPT_W, BAND_H, bs),
+        K.TILE_MODE: lambda: K.rle_diff_encode(win, full, zero, False, cap,
+                                               tile=T),
+        "entropy stage": lambda: canonical_encode_batch(s_b, ln_b, lane=LANE),
+    }
+    log(f"sharded-adaptive encode stages, 256 bands, bs {bs} (ms):",
+        {k: round(cuda_ms(f, reps=5), 3) for k, f in enc_stages.items()})
+    del hor, ver, tfull, enc_stages
+    staged = codec.stage_adapt_bands(blob, hdr, 0, STEP)
+    st = staged[0]
+    words = K.repad_words(st["flat"], st["lw"], hdr["wl_bucket"])
+    streams = canonical_decode_batch(
+        words, st["tables"], st["lw"], st["rl"], lane=LANE, out_len=cap,
+        max_len=hdr["max_len_bucket"])
+    enc_rows, rows_len = A._cut_tile_rows(streams, st["tile_lens"], bs)
+    ic = rle_classify(enc_rows, rows_len)
+    zrows = torch.zeros(enc_rows.shape[0], dtype=torch.uint8, device=dev)
+    tiles = K.rle_expand(enc_rows, ic, rows_len, zrows, bs * bs, False)
+    placed = A._place_tiles(tiles, st["dirs"], ADAPT_W, BAND_H, bs)
+    dec_stages = {
+        "entropy decode (repad + lane decode)": lambda: canonical_decode_batch(
+            K.repad_words(st["flat"], st["lw"], hdr["wl_bucket"]),
+            st["tables"], st["lw"], st["rl"], lane=LANE, out_len=cap,
+            max_len=hdr["max_len_bucket"]),
+        "cut tile rows": lambda: A._cut_tile_rows(streams, st["tile_lens"],
+                                                  bs),
+        "rle_classify": lambda: rle_classify(enc_rows, rows_len),
+        "rle_expand": lambda: K.rle_expand(enc_rows, ic, rows_len, zrows,
+                                           bs * bs, False),
+        "place tiles": lambda: A._place_tiles(tiles, st["dirs"], ADAPT_W,
+                                              BAND_H, bs),
+        "diff_revert": lambda: diff_revert(placed, st["car"]),
+    }
+    log(f"sharded-adaptive decode stages, 256 bands, bs {bs}, "
+        f"{enc_rows.shape[0]} tile rows of {enc_rows.shape[1]} (ms):",
+        {k: round(cuda_ms(f, reps=5), 3) for k, f in dec_stages.items()})
+    del staged, st, words, streams, enc_rows, ic, tiles, placed, dec_stages
+    del wins, work, step
+
+    # -- times: search, device encode and decode, peak memory ------------------
+    xd = torch.from_numpy(x).to(dev)
+    sx = diff_apply(xd)
+    rows_all = n_in // ADAPT_W
+    log("search per candidate, 64 MiB matrix (ms):",
+        {b: round(cuda_ms(lambda: A._adapt_score_v3(sx, ADAPT_W, rows_all, b),
+                          reps=3, warm=1), 3)
+         for b in A.candidate_sizes(ADAPT_W, BAND_H)})
+    del sx
+    staged = codec.stage_adapt_bands(blob, hdr, 0, hdr["n_chunks"])
+    torch.cuda.synchronize()
+
+    def search():
+        return A.adapt_search_best_v3(diff_apply(xd), ADAPT_W, rows_all,
+                                      max_height=BAND_H)
+
+    def enc():
+        return codec.run_sharded_adapt_stage(xd, bs)
+
+    def dec():
+        return codec.run_adapt_bands(hdr, staged)
+
+    t_search, t_enc, t_dec = median_ms(search), median_ms(enc), median_ms(dec)
+    peaks = []
+    for fn in (search, enc, dec):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated() - before) / 2 ** 30)
+    log(f"sharded adaptive device 64 MiB diff=True: search {t_search:.3f} ms, "
+        f"band stage {t_enc:.3f} ms, encode "
+        f"{n_in / (t_search + t_enc) / 1e3:.1f} MB/s, decode "
+        f"{n_in / t_dec / 1e3:.1f} MB/s ({t_dec:.3f} ms), "
+        f"{8 * len(blob) / n_in:.4f} bpc; peak device memory above what was "
+        f"resident: search {peaks[0]:.2f} GiB, band stage {peaks[1]:.2f} "
+        f"GiB, decode {peaks[2]:.2f} GiB")
+    del staged, xd
+    torch.cuda.empty_cache()
+
+    for n in (GLOBAL_SIZES[0], GLOBAL_SIZES[2]):
+        xg = torch.from_numpy(x[:n].copy()).to(dev)
+        for d in (False, True):
+            gc = TorchCodec(CodecConfig(use_adapt=True, use_diff=d,
+                                        width=ADAPT_W))
+            gh = gc._parse(gblobs[(n, d)])
+            gst = gc.stage_global(gblobs[(n, d)], gh)
+            cands = gc.global_candidates(n)
+            torch.cuda.synchronize()
+
+            def gsearch():
+                return A.adapt_search_best_v3(
+                    diff_apply(xg) if d else xg, ADAPT_W, n // ADAPT_W)
+
+            def genc():
+                return [gc.run_global_stage(xg, w, gh["bs"]) for w in cands]
+
+            def gdec():
+                return gc.run_global_decode(gh, gst)
+
+            ts, te, td = median_ms(gsearch), median_ms(genc), median_ms(gdec)
+            log(f"global adaptive device {n} B diff={d}: search {ts:.3f} ms "
+                f"({len(A.candidate_sizes(ADAPT_W, n // ADAPT_W))} "
+                f"candidates), {len(cands)} candidate stages {te:.3f} ms, "
+                f"encode {n / (ts + te) / 1e3:.1f} MB/s, decode "
+                f"{n / td / 1e3:.1f} MB/s ({td:.3f} ms)")
+    # the grouped decode's stages at 256 KiB, bs 8
+    gh = gc._parse(g8)
+    gst = gc.stage_global(g8, gh)
+    torch.cuda.synchronize()
+    log(f"global adaptive 256 KiB bs 8 (grouped) device decode "
+        f"{median_ms(lambda: gc.run_global_decode(gh, gst)):.3f} ms, of "
+        f"which the walk kernel {walk[8]['ms']:.4f} ms")
+    return launches, row_1b, row_walk
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -571,7 +1127,8 @@ def main() -> int:
     launches = K.launch_counts()
     log("main path launches (two 64 MiB round trips):", launches)
     sharded_kernels = [k.__name__ for k in K.KERNELS
-                       if k is not K.lane_decode_lanemajor]
+                       if k not in (K.lane_decode_lanemajor,
+                                    K.group_tile_lens)]
     if not all(launches[k] for k in sharded_kernels):
         raise AssertionError(f"a kernel was never launched: {launches}")
     for d, b in blobs.items():
@@ -646,7 +1203,9 @@ def main() -> int:
                                    True, s["cap"]),
          lambda: K.rle_diff_encode_plain(s["chunks"], s["in_lens"],
                                          s["carries"], True, s["cap"]),
-         None, sum_in + 5 * C + C * s["cap"] + 4 * C, 10 * sum_in),
+         # written: each chunk's stream and its length (the zero padding
+         # of the rows to ``cap`` is the kernel's choice, not counted)
+         None, sum_in + 5 * C + sum_rl + 4 * C, 10 * sum_in),
         ("histogram256", "histogram.cu", 1163,
          lambda: K.histogram256(s["st"], s["rl"]),
          lambda: K.histogram256_plain(s["st"], s["rl"]),
@@ -724,6 +1283,14 @@ def main() -> int:
         "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
         "library_ms": None,
         "lane_decode_ms": k7["lane_decode_ms"]})
+    alaunches, row_1b, row_walk = adaptive_path(K, TorchCodec, CodecConfig, x,
+                                                errs)
+    for row in rows:
+        row["launches_adaptive"] = alaunches[row["name"]]
+    rows += [row_1b, row_walk]
+    for row in rows:  # the later phases' comparisons count as well
+        row["max_abs_err"] = max(v for k, v in errs.items()
+                                 if k.split(".")[0] == row["name"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,0 +1,80 @@
+// Per-tile stream lengths of a grouped adaptive manifest.
+//
+// Replaces no TPU kernel: the JAX package runs this walk as an XLA scan
+// (huffman_codec_tpu/ops/adapt.py, adapt_group_tile_lens). As PyTorch ops
+// it is one Python step of a dozen small launches per stream byte of the
+// longest group, thousands of steps a container.
+//
+// Contract: stream (n,) u8 holds concatenated per-tile MNP-5 streams,
+// `total` bytes in all; group_offs (ng,) i32 is the offset of every K-th
+// tile's stream; sizes (ng * K,) i32 the decoded size of each tile (0 past
+// the last tile) -> lens (ng * K,) i32, the bytes of each tile's stream.
+// A group is walked through the decoder FSM (match byte, count <= 3: the
+// byte after three equal ones is a count byte and expands to that many
+// repeats) for at most group_cap bytes; a tile ends where its decoded size
+// is reached, and the FSM restarts there.
+//
+// Bound on the H100: the serial chain of one group, a few dependent
+// instructions a byte; the bytes (the stream read once) are far below it.
+// Design: one thread per group. Groups are independent and few (a 512 x
+// 512 image at block size 8 has 64), so the card is mostly idle; the walk
+// is short enough that this does not matter beside the stages around it.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 32;
+
+__global__ void __launch_bounds__(kThreads)
+group_tile_lens_kernel(const uint8_t* __restrict__ stream,
+                       const int* __restrict__ group_offs,
+                       const int* __restrict__ sizes, int* __restrict__ lens,
+                       int ng, int K, int n, int total, int group_cap) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= ng) return;
+  const int off = group_offs[g];
+  const int end = g + 1 < ng ? group_offs[g + 1] : total;
+  const int glen = min(end - off, group_cap);
+  const int* sz = sizes + static_cast<size_t>(g) * K;
+  int* out = lens + static_cast<size_t>(g) * K;
+  for (int k = 0; k < K; ++k) out[k] = 0;
+
+  int t = 0, produced = 0, match = -1, count = 0, bytes = 0;
+  for (int pos = 0; pos < glen && t < K; ++pos) {
+    const int byte = stream[min(max(off + pos, 0), n - 1)];
+    const bool is_cnt = count == 3;
+    produced += is_cnt ? byte : 1;
+    ++bytes;
+    if (produced >= sz[t]) {  // tile complete: the FSM restarts
+      out[t++] = bytes;
+      produced = 0;
+      bytes = 0;
+      match = -1;
+      count = 0;
+    } else if (is_cnt) {
+      count = 0;
+    } else {
+      count = match == byte ? count + 1 : 1;
+      match = byte;
+    }
+  }
+  if (t < K) out[t] = bytes;
+}
+
+}  // namespace
+
+extern "C" int group_tile_lens_launch(const void* stream,
+                                      const void* group_offs,
+                                      const void* sizes, void* lens, int ng,
+                                      int K, int n, int total, int group_cap,
+                                      void* cuda_stream) {
+  const int blocks = (ng + kThreads - 1) / kThreads;
+  group_tile_lens_kernel<<<blocks, kThreads, 0,
+                           static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const uint8_t*>(stream),
+      static_cast<const int*>(group_offs), static_cast<const int*>(sizes),
+      static_cast<int*>(lens), ng, K, n, total, group_cap);
+  return static_cast<int>(cudaGetLastError());
+}

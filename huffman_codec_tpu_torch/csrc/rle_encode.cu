@@ -1,7 +1,8 @@
-// Fused per-chunk diff + MNP-5 RLE encode.
+// Fused per-chunk diff + MNP-5 RLE encode, and its tile mode.
 //
 // Replaces: huffman_codec_tpu/ops/pallas_kernels.py, rle_diff_encode_fused
-// (pallas_call at line 944, body _rle_fused_kernel) with tile=0.
+// (pallas_call at line 944, body _rle_fused_kernel), with tile=0 and with
+// tile=T.
 //
 // Contract: chunks (C, n) u8, lens (C,) i32 valid bytes, carries (C,) u8
 // (the input byte before each chunk) -> streams (C, cap) u8, zero past each
@@ -10,6 +11,14 @@
 // it ends its segment with q >= 2, where q = (i - segment start) % 258 and
 // a segment is a maximal run of equal bytes, broken before the last valid
 // byte.
+//
+// Tile mode (tile > 0, a power of two dividing n; use_diff == 0): a valid
+// position also starts a segment where i % tile is 0 or tile - 1, so runs
+// restart at every tile's first byte and every tile's last byte is a fresh
+// literal. The row then encodes as its tiles' own MNP-5 streams one after
+// the other: an adaptive band's payload when the row holds the band's
+// tiles in their winning scan order. The offsets are the row-wide sum-scan
+// either way, so the concatenation costs nothing.
 //
 // Bound on the H100: bytes. Per 64 KiB chunk it reads the chunk once and
 // writes the 88 KiB padded stream once; the work is a few dozen integer
@@ -43,7 +52,7 @@ rle_encode_kernel(const uint8_t* __restrict__ chunks,
                   const int* __restrict__ lens,
                   const uint8_t* __restrict__ carries,
                   uint8_t* __restrict__ streams, int* __restrict__ out_lens,
-                  int n, int cap, int use_diff) {
+                  int n, int cap, int use_diff, int tile) {
   using Scan = cub::BlockScan<int, kThreads>;
   __shared__ typename Scan::TempStorage scan_tmp;
 
@@ -52,6 +61,12 @@ rle_encode_kernel(const uint8_t* __restrict__ chunks,
   uint8_t* out = streams + static_cast<size_t>(c) * cap;
   const int length = min(max(lens[c], 0), n);
   const int carry = carries[c];
+  const int tmask = tile - 1;  // -1 when tile == 0, and then unused
+  // does position i start a segment because of where it lies in its tile?
+  auto tile_edge = [&](int i) {
+    const int ti = i & tmask;
+    return tile > 0 && (ti == 0 || ti == tmask);
+  };
 
   int seg_carry = 0;  // segment origin reached before this tile
   int off_carry = 0;  // bytes emitted before this tile
@@ -85,7 +100,8 @@ rle_encode_kernel(const uint8_t* __restrict__ chunks,
     for (int j = 0; j < kItems; ++j) {
       const int i = base + j;
       const bool start = i < length &&
-                         (i == 0 || yv[j + 1] != yv[j] || i == length - 1);
+                         (i == 0 || yv[j + 1] != yv[j] || i == length - 1 ||
+                          tile_edge(i));
       seg[j] = start ? i : 0;
     }
     int seg_agg;
@@ -100,7 +116,7 @@ rle_encode_kernel(const uint8_t* __restrict__ chunks,
       const int q = (i - max(seg[j], seg_carry)) % kReset;
       // the segment ends here if the next byte starts a new one
       const bool seg_end = i == length - 1 || i + 1 == length - 1 ||
-                           yv[j + 2] != yv[j + 1];
+                           yv[j + 2] != yv[j + 1] || tile_edge(i + 1);
       const bool lit = i < length && q < 3;
       const bool cnt = i < length && (q == kReset - 1 || (seg_end && q >= 2));
       emit[j] = (lit ? 1 : 0) | (cnt ? 2 : 0);
@@ -131,10 +147,10 @@ rle_encode_kernel(const uint8_t* __restrict__ chunks,
 extern "C" int rle_encode_launch(const void* chunks, const void* lens,
                                  const void* carries, void* streams,
                                  void* out_lens, int C, int n, int cap,
-                                 int use_diff, void* stream) {
+                                 int use_diff, int tile, void* stream) {
   rle_encode_kernel<<<C, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(chunks), static_cast<const int*>(lens),
       static_cast<const uint8_t*>(carries), static_cast<uint8_t*>(streams),
-      static_cast<int*>(out_lens), n, cap, use_diff);
+      static_cast<int*>(out_lens), n, cap, use_diff, tile);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,10 @@ Layout of the v3 wire (little-endian; payload words big-endian):
     table bit width u8 | lane-words bit width u8
     orig_size u64 | transformed_size u64 | chunk_size u32 | n_chunks u32
     lane u32 | crc32 u32 (of the original data)
+    [adaptive] W u64 | H u64 | bs u64 | n_tiles u32
+               scan directions, one bit a tile, MSB-first (1 = row-major)
+               tile stream lengths, u16 (u32 from bs 256) * n_tiles, or
+               [flag 0x10: grouped] the offset u32 of every 64th tile
     [sharded] rle_lens u32 * n_chunks | carries u8 * n_chunks
     [canonical] code-length tables, 4 or 5 bits packed (256 per chunk)
                 lane_words of the used lanes, k bits packed
@@ -36,8 +40,25 @@ whole-stream RLE decode and diff revert (torch ops), the size check and
 the crc32. ``decode`` tells v1 and v2 blobs by their magic and hands them
 to the host runtime.
 
-Supported: ``entropy="canonical"`` and ``use_adapt=False`` in both
-layouts; other configurations raise NotImplementedError.
+Adaptive mode (``use_adapt``) replaces the stream RLE by the adaptive
+block RLE of ``ops/adapt.py``: the input is a matrix ``width`` wide, cut
+into bs x bs tiles, each MNP-5 encoded in the better of its two scan
+orders, with bs searched for the least estimated container. Global: the
+search and the tile encode run over the whole matrix (torch ops), the
+concatenated tile streams take the place of the RLE stream, and the
+manifest keeps every tile's direction and length (or, for many small
+tiles, one offset per 64 tiles; decode then finds the lengths again by
+walking the groups, a kernel). Sharded: a chunk is a band of
+``chunk_size / width`` full rows, tiled and entropy-coded on its own
+with one block size for all bands; where bs divides the band's sides the
+band's tiles are reordered by a transpose, sized in both directions
+(torch ops) and encoded by the RLE kernel in tile mode, any other
+geometry (the shorter tail band) goes through the torch-op tile encode.
+Decode cuts every tile's stream out as a row, classifies and expands the
+rows (the expansion kernel) and puts the tiles back.
+
+Supported: ``entropy="canonical"`` in both layouts, stream or adaptive;
+``entropy="fgk"`` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -64,6 +85,17 @@ from huffman_codec_tpu_torch.formats import (
 )
 from huffman_codec_tpu_torch.native import runtime
 from huffman_codec_tpu_torch.ops import kernels
+from huffman_codec_tpu_torch.ops.adapt import (
+    _gather_tiles,
+    adapt_decode_bands,
+    adapt_decode_tiled,
+    adapt_encode_bands,
+    adapt_encode_fixed,
+    adapt_group_tile_lens,
+    adapt_search_best_v3,
+    grouped_manifest,
+    tile_len_width,
+)
 from huffman_codec_tpu_torch.ops.canonical import (
     canonical_decode_batch,
     canonical_encode_batch,
@@ -74,6 +106,7 @@ from huffman_codec_tpu_torch.ops.rle import (
     rle_classify,
     rle_decode,
     rle_encode,
+    rle_encoded_size,
     rle_max_encoded_len,
 )
 
@@ -145,11 +178,6 @@ def _sharded_cap(chunk_size: int, entropy: str, lane: int) -> int:
     return -(-cap // blk) * blk if entropy == "canonical" else cap
 
 
-def _tile_len_width(bs: int) -> int:
-    """Manifest bytes per adaptive tile length."""
-    return 2 if rle_max_encoded_len(bs * bs) <= 0xFFFF else 4
-
-
 def _strip_payload(buf: torch.Tensor, lw: torch.Tensor) -> torch.Tensor:
     """(C, n_lanes, W) padded lane buffers -> the dense payload words, by
     one boolean-mask compaction on the buffers' device."""
@@ -209,6 +237,86 @@ def _encode_stream_stage(data: torch.Tensor, use_diff: bool, chunk_size: int,
     return buf, lane_words, tables, total[0]
 
 
+def _encode_adapt_stage(data: torch.Tensor, use_diff: bool, width: int,
+                        height: int, bs: int, chunk_size: int,
+                        max_chunks: int, lane: int):
+    """Whole-input diff -> adaptive block RLE at block size ``bs`` ->
+    chunked canonical entropy. The transformed stream is the concatenated
+    tile data only: the manifest replaces the v1 in-band header. Returns
+    (lane_buf, lane_words, tables, total, dirs, tile_lens) on the device."""
+    x = diff_apply(data) if use_diff else data
+    stream, total, dirs, tile_lens = adapt_encode_fixed(
+        x, width, height, bs, out_len=max_chunks * chunk_size,
+        with_header=False)
+    chunks, lens = _chunkify(stream, total, chunk_size, max_chunks)
+    buf, lane_words, tables = canonical_encode_batch(chunks, lens, lane=lane)
+    return buf, lane_words, tables, total, dirs, tile_lens
+
+
+def _band_tiles(width: int, band_h: int, bs: int) -> int:
+    """Tiles per band: the manifest's stride."""
+    return _cdiv(width, bs) * _cdiv(band_h, bs)
+
+
+def _band_winner_order(work: torch.Tensor, width: int, band_h: int, bs: int):
+    """(nb, band_h * width) bands whose sides bs divides -> each band's
+    tiles one after the other, every tile in the scan order that encodes
+    shorter: the reorder is two transposes, the pick compares the tiles'
+    closed-form encoded sizes. Returns (win (nb, band_h * width), dirs
+    (nb, nt) bool, tile_lens (nb, nt) int32)."""
+    nb = work.shape[0]
+    T = bs * bs
+    hor, ver, _ = _gather_tiles(work, width, band_h, bs)
+    nt = hor.shape[1]
+    full = torch.full((nb * nt,), T, dtype=torch.int32, device=work.device)
+    h_sz = rle_encoded_size(hor.reshape(-1, T), full).view(nb, nt)
+    v_sz = rle_encoded_size(ver.reshape(-1, T), full).view(nb, nt)
+    dirs = h_sz <= v_sz  # horizontal wins ties
+    win = torch.where(dirs[:, :, None], hor, ver).reshape(nb, -1)
+    return win, dirs, torch.minimum(h_sz, v_sz).to(torch.int32)
+
+
+def _encode_sharded_adapt_stage(bands: torch.Tensor, carries: torch.Tensor,
+                                use_diff: bool, width: int, band_h: int,
+                                bs: int, cap: int, lane: int):
+    """Sharded-adaptive encode of (nb, band_h * width) uint8 bands of one
+    height: per-band diff seeded by ``carries``, adaptive block RLE of
+    each band on its own at block size ``bs`` (tiles clamped at the
+    band's borders), a canonical table per band. Returns (lane_buf,
+    lane_words, tables, stream_lens (nb,), dirs (nb, nt), tile_lens
+    (nb, nt)) on the device."""
+    work = diff_apply(bands, carries) if use_diff else bands
+    nb, cs = work.shape
+    if width % bs == 0 and band_h % bs == 0 and cs % 16 == 0:
+        # tiles whole: one pass of the RLE kernel in tile mode over the
+        # winning order; its row-wide offsets concatenate the tile streams
+        win, dirs, tile_lens = _band_winner_order(work, width, band_h, bs)
+        streams, totals = kernels.rle_diff_encode(
+            win, torch.full((nb,), cs, dtype=torch.int32, device=work.device),
+            torch.zeros(nb, dtype=torch.uint8, device=work.device), False,
+            cap, tile=bs * bs)
+    else:
+        streams, totals, dirs, tile_lens = adapt_encode_bands(
+            work, width, band_h, bs, cap)
+    buf, lane_words, tables = canonical_encode_batch(streams, totals,
+                                                     lane=lane)
+    return buf, lane_words, tables, totals, dirs, tile_lens
+
+
+def _decode_sharded_adapt_tail(streams, tile_lens, dirs, carries, width: int,
+                               band_h: int, bs: int, use_diff: bool):
+    """Inverse of the band stage: per-band tile decode from the manifest,
+    then the per-band diff revert seeded by the stored carries."""
+    out = adapt_decode_bands(streams, tile_lens, dirs, width, band_h, bs)
+    return (diff_revert(out, carries) if use_diff else out).reshape(-1)
+
+
+def _decode_adapt_tail(stream, tile_lens, dirs, width: int, height: int,
+                       bs: int, use_diff: bool):
+    flat = adapt_decode_tiled(stream, tile_lens, dirs, width, height, bs)
+    return diff_revert(flat) if use_diff else flat
+
+
 def _global_geometry(cfg: CodecConfig, n: int, whole: bool):
     """(chunk_size, lane, max_chunks) of one global-layout candidate for
     ``n`` input bytes. ``whole``: one chunk of fat lanes, the smallest
@@ -260,9 +368,14 @@ class TorchCodec:
             if cfg.lane > 1 << 15:
                 raise ValueError("lane > 32768 overflows the packed "
                                  "lane-words manifest width")
-        if cfg.use_adapt:
-            raise NotImplementedError(
-                "adaptive block RLE comes with ROADMAP.md queue 1 item 7")
+        if cfg.layout == "sharded" and cfg.use_adapt:
+            # adaptive chunks are bands of full matrix rows
+            if cfg.chunk_size % cfg.width:
+                raise ValueError("sharded adaptive needs chunk_size "
+                                 "divisible by the matrix width")
+            if cfg.chunk_size // cfg.width < 8:
+                raise ValueError("sharded adaptive needs bands of >= 8 "
+                                 "rows (chunk_size / width)")
         if cfg.entropy != "canonical":
             raise NotImplementedError(
                 "FGK entropy comes with ROADMAP.md queue 1 item 8")
@@ -298,15 +411,31 @@ class TorchCodec:
     def encode(self, data: bytes) -> bytes:
         cfg = self.config
         n = len(data)
+        if cfg.use_adapt:
+            if cfg.width <= 0:
+                raise ValueError("invalid matrix width")
+            if n % cfg.width:
+                raise ValueError("invalid size of input 2D data")
         if n == 0:
             return self._container(b"", 0, 0, [], None, None, None,
                                    zlib.crc32(b""))
+        if cfg.layout == "sharded" and cfg.use_adapt:
+            return self._encode_sharded_adapt(data)
         if cfg.layout != "sharded":
+            bs = None
+            if cfg.use_adapt:
+                # the search sees the matrix after the diff, as the
+                # reference applies the diff model before its search
+                x = torch.from_numpy(
+                    np.frombuffer(data, np.uint8).copy()).to(self.device)
+                bs = adapt_search_best_v3(
+                    diff_apply(x) if cfg.use_diff else x, cfg.width,
+                    n // cfg.width)
             # best of two shapes of the same wire: the whole-file candidate
             # wins when the per-chunk manifest dominates, the chunked one
             # when the statistics drift and a table per chunk pays; it is
             # first, so it also wins a tie
-            sts = [self._dispatch_global(data, None, w)
+            sts = [self._dispatch_global(data, bs, w)
                    for w in self.global_candidates(n)]
             return self._race_v1(data, min(
                 (self._assemble_global(data, st) for st in sts), key=len))
@@ -330,6 +459,63 @@ class TorchCodec:
                                chunk_bits, np.concatenate(tables)[:n_chunks],
                                lw, (rl, car), zlib.crc32(data))
 
+    def run_sharded_adapt_stage(self, x: torch.Tensor, bs: int) -> list:
+        """The sharded-adaptive device stage on resident input ((n,) uint8
+        on the device, whole rows) at block size ``bs``, without
+        synchronising: the full bands in one call, then a shorter tail
+        band in a call of its own at its clamped geometry.
+        Returns per call (payload words, lane_words, tables, stream_lens,
+        dirs, tile_lens)."""
+        cfg = self.config
+        w, cs = cfg.width, cfg.chunk_size
+        band_h = cs // w
+        nb_full, h_tail = divmod(x.shape[0] // w, band_h)
+        # band k's diff carry is the input byte before it
+        car = torch.cat([x.new_zeros(1), x[cs - 1:: cs]])
+        cap = _sharded_cap(cs, "canonical", cfg.lane)
+        calls = [(0, nb_full, band_h)] if nb_full else []
+        if h_tail:
+            calls.append((nb_full, nb_full + 1, h_tail))
+        outs = []
+        for b0, b1, bh in calls:
+            bands = x[b0 * cs: b0 * cs + (b1 - b0) * bh * w].view(b1 - b0, -1)
+            buf, lw, *meta = _encode_sharded_adapt_stage(
+                bands, car[b0:b1], cfg.use_diff, w, bh, bs, cap, cfg.lane)
+            outs.append((_strip_payload(buf, lw), lw, *meta))
+        return outs
+
+    def _encode_sharded_adapt(self, data: bytes) -> bytes:
+        """The input matrix is cut into bands of ``chunk_size / width``
+        full rows; each band is adaptively block-RLE'd on its own, with
+        one block size searched for all of them, and entropy-coded as a
+        chunk of its own. Bands restart the RLE and carry one diff byte,
+        so the container streams, splices and random-accesses like the
+        stream-mode sharded layout."""
+        cfg = self.config
+        n, w, cs = len(data), cfg.width, cfg.chunk_size
+        n_rows, band_h = n // w, cs // w
+        if min(w, band_h, n_rows) < 8:
+            raise ValueError("too small 2D data dimensions")
+        arr = np.frombuffer(data, np.uint8)
+        x = torch.from_numpy(arr.copy()).to(self.device)
+        # candidates must fit a band; scored on the whole matrix
+        bs = adapt_search_best_v3(diff_apply(x) if cfg.use_diff else x, w,
+                                  n_rows, max_height=band_h)
+        outs = self.run_sharded_adapt_stage(x, bs)
+        payload = b"".join(_words_to_wire(o[0]) for o in outs)
+        lw, tables, rl = (np.concatenate([o[i].cpu().numpy() for o in outs])
+                          for i in (1, 2, 3))
+        dirs, tile_lens = (
+            np.concatenate([o[i].cpu().numpy().reshape(-1) for o in outs])
+            for i in (4, 5))
+        car = np.zeros(len(rl), np.uint8)
+        car[1:] = arr[cs - 1:: cs][: len(rl) - 1]
+        chunk_bits = (lw.sum(axis=1, dtype=np.int64) * 32).tolist()
+        return self._container(
+            payload, n, int(rl.sum()), chunk_bits, tables, lw, (rl, car),
+            zlib.crc32(data),
+            adapt_meta=(w, n_rows, bs, dirs, tile_lens, False))
+
     def global_candidates(self, n: int) -> list[bool]:
         """The candidates ``encode`` tries for ``n`` input bytes, as
         ``whole`` flags in the order that decides a tie."""
@@ -338,26 +524,35 @@ class TorchCodec:
             return [True, False]
         return [False]
 
-    def run_global_stage(self, x: torch.Tensor, whole: bool) -> dict:
+    def run_global_stage(self, x: torch.Tensor, whole: bool,
+                         bs: int | None = None) -> dict:
         """One global-layout candidate's device stage on resident input
         ((n,) uint8 on the device), without synchronising: the dense
-        payload words, lane words, tables and stream length."""
+        payload words, lane words, tables and stream length, and in
+        adaptive mode (``bs`` is the block size, None in stream mode) the
+        tiles' directions and lengths."""
+        cfg = self.config
         n = x.shape[0]
-        cs, lane, max_chunks = _global_geometry(self.config, n, whole)
-        buf, lw, tables, total = _encode_stream_stage(
-            x, self.config.use_diff, cs, max_chunks, lane)
-        return dict(cs=cs, lane=lane, n=n, payload=_strip_payload(buf, lw),
-                    meta=lw, tables=tables, total=total)
+        cs, lane, max_chunks = _global_geometry(cfg, n, whole)
+        st = dict(cs=cs, lane=lane, n=n, bs=bs)
+        if bs is None:
+            buf, lw, tables, total = _encode_stream_stage(
+                x, cfg.use_diff, cs, max_chunks, lane)
+        else:
+            st["wh"] = w, h = cfg.width, n // cfg.width
+            buf, lw, tables, total, st["dirs"], st["tile_lens"] = (
+                _encode_adapt_stage(x, cfg.use_diff, w, h, bs, cs,
+                                    max_chunks, lane))
+        st.update(payload=_strip_payload(buf, lw), meta=lw, tables=tables,
+                  total=total)
+        return st
 
     def _dispatch_global(self, data: bytes, bs, whole: bool) -> dict:
         """Upload the input and start one candidate's device stage.
         ``bs`` is the adaptive block size, None in stream mode."""
-        if bs is not None:
-            raise NotImplementedError(
-                "adaptive block RLE comes with ROADMAP.md queue 1 item 7")
         # a copy: the bytes object's buffer is read-only
         x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
-        return self.run_global_stage(x.to(self.device), whole)
+        return self.run_global_stage(x.to(self.device), whole, bs)
 
     def _assemble_global(self, data: bytes, st: dict) -> bytes:
         """Fetch one dispatched candidate and assemble its container; the
@@ -367,10 +562,18 @@ class TorchCodec:
         n_chunks = _cdiv(total, cs)
         lw = st["meta"].cpu().numpy()[:n_chunks]
         chunk_bits = (lw.sum(axis=1, dtype=np.int64) * 32).tolist()
+        adapt_meta = None
+        if st["bs"] is not None:
+            tile_lens = st["tile_lens"].cpu().numpy()
+            grouped = grouped_manifest(len(tile_lens), st["bs"],
+                                       4 * int(lw.sum()))
+            adapt_meta = (*st["wh"], st["bs"], st["dirs"].cpu().numpy(),
+                          tile_lens, grouped)
         return self._container(
             _words_to_wire(st["payload"]), st["n"], total, chunk_bits,
             st["tables"].cpu().numpy()[:n_chunks], lw, None,
-            zlib.crc32(data), chunk_size=cs, lane=st["lane"])
+            zlib.crc32(data), chunk_size=cs, lane=st["lane"],
+            adapt_meta=adapt_meta)
 
     def _encode_global(self, data: bytes, bs, whole: bool) -> bytes:
         return self._assemble_global(data,
@@ -393,7 +596,9 @@ class TorchCodec:
 
     def _container(self, payload, orig, total, chunk_bits, tables,
                    lane_words, sharded_meta, crc=0, chunk_size=None,
-                   lane=None) -> bytes:
+                   lane=None, adapt_meta=None) -> bytes:
+        """``adapt_meta``: (W, H, bs, dirs, tile_lens, grouped) of an
+        adaptive container, else None."""
         cfg = self.config
         chunk_size = cfg.chunk_size if chunk_size is None else chunk_size
         lane = cfg.lane if lane is None else lane
@@ -401,7 +606,8 @@ class TorchCodec:
         out = bytearray()
         out += V3_MAGIC
         out.append(3)  # container version
-        out.append(cfg.flags())
+        grouped = adapt_meta is not None and adapt_meta[5]
+        out.append(cfg.flags() | (FLAG_AGROUP if grouped else 0))
         out.append(ENTROPY[cfg.entropy])
         # code-length table bit width, then the lane-words bit width: the
         # maximum of THIS container
@@ -413,6 +619,20 @@ class TorchCodec:
         out.append(kw)
         out += struct.pack("<QQIIII", orig, total, chunk_size,
                            len(chunk_bits), lane, crc)
+        if adapt_meta is not None:
+            w, h, bs, dirs, tile_lens, _ = adapt_meta
+            nt = len(tile_lens)
+            out += struct.pack("<QQQI", w, h, bs, nt)
+            out += np.packbits(np.asarray(dirs, np.uint8)).tobytes()
+            if grouped:
+                # one byte offset per GROUP_K tiles; decode finds the
+                # tile lengths again (ops/adapt.adapt_group_tile_lens)
+                offs = np.concatenate(
+                    [[0], np.cumsum(tile_lens.astype(np.int64))])
+                out += offs[:nt:GROUP_K].astype("<u4").tobytes()
+            else:
+                out += np.asarray(tile_lens,
+                                  f"<u{tile_len_width(bs)}").tobytes()
         if not canonical:
             out += np.asarray(chunk_bits, "<u4").tobytes()
         if sharded_meta is not None:
@@ -448,10 +668,6 @@ class TorchCodec:
     # -- decode -------------------------------------------------------------
 
     def _check_supported(self, hdr: dict) -> None:
-        flags = hdr["flags"]
-        if flags & FLAG_ADAPT:
-            raise NotImplementedError(
-                "adaptive containers come with ROADMAP.md queue 1 item 7")
         if hdr["entropy"] != ENTROPY_CANONICAL:
             raise NotImplementedError(
                 "FGK containers come with ROADMAP.md queue 1 item 8")
@@ -487,6 +703,8 @@ class TorchCodec:
         self._check_supported(hdr)
         if not hdr["flags"] & FLAG_SHARDED:
             raise ValueError("decode_steps requires the sharded layout")
+        if hdr["flags"] & FLAG_ADAPT:
+            raise ValueError("decode_steps requires stream mode")
         n_chunks = hdr["n_chunks"]
         S = min(self.config.step_chunks or n_chunks, n_chunks)
         staged = [self._stage_step(blob, hdr, k * S,
@@ -518,6 +736,68 @@ class TorchCodec:
         hdr, staged = self.stage_decode_steps(blob, hdr)
         return self.run_decode_steps(hdr, staged)
 
+    def stage_adapt_bands(self, blob: bytes, hdr: dict, c0: int, c1: int):
+        """Host -> device transfer of bands [c0, c1) of a sharded-adaptive
+        container without any compute: per group of one geometry (the
+        full bands, then the shorter tail band) the payload words and the manifest rows, the tiles'
+        lengths and directions among them."""
+        cs, w, bs = hdr["chunk_size"], hdr["w"], hdr["bs"]
+        band_h = cs // w
+        nb_full, h_tail = divmod(hdr["h"], band_h)
+        dirs, tl = hdr["dirs"], hdr["tile_lens"].astype(np.int32)
+        staged = []
+        for b0, b1, bh, nt, toff in self._band_groups(
+                c0, c1, nb_full, h_tail, _band_tiles(w, band_h, bs), w, bs,
+                band_h):
+            st = self._stage_step(blob, hdr, b0, b1, b1 - b0)
+            rows = slice(toff, toff + (b1 - b0) * nt)
+            st.update(
+                band_h=bh,
+                tile_lens=torch.from_numpy(
+                    tl[rows].reshape(b1 - b0, nt)).to(self.device),
+                dirs=torch.from_numpy(
+                    dirs[rows].reshape(b1 - b0, nt)).to(self.device))
+            staged.append(st)
+        return staged
+
+    def run_adapt_bands(self, hdr: dict, staged: list) -> torch.Tensor:
+        """The decode compute of staged sharded-adaptive bands as one flat
+        device tensor, without synchronising: entropy decode of each
+        band's chunk, tile decode from the manifest, per-band diff
+        revert."""
+        cs, lane = hdr["chunk_size"], hdr["lane"]
+        cap = _sharded_cap(cs, "canonical", lane)
+        parts = []
+        for st in staged:
+            words = kernels.repad_words(st["flat"], st["lw"],
+                                        hdr["wl_bucket"])
+            streams = canonical_decode_batch(
+                words, st["tables"], st["lw"], st["rl"], lane=lane,
+                out_len=cap, max_len=hdr["max_len_bucket"])
+            parts.append(_decode_sharded_adapt_tail(
+                streams, st["tile_lens"], st["dirs"], st["car"], hdr["w"],
+                st["band_h"], hdr["bs"], bool(hdr["flags"] & FLAG_DIFF)))
+        return torch.cat(parts)
+
+    def _decode_adapt_bands(self, blob: bytes, hdr: dict, c0: int,
+                            c1: int) -> torch.Tensor:
+        """Decode bands [c0, c1) of a sharded-adaptive container; no band
+        outside the range is touched."""
+        return self.run_adapt_bands(
+            hdr, self.stage_adapt_bands(blob, hdr, c0, c1))
+
+    @staticmethod
+    def _band_groups(c0, c1, nb_full, h_tail, nt_full, w, bs, band_h):
+        """Split a band range into (start, end, band rows, tiles a band,
+        flat tile offset) groups of one geometry: the full bands, then
+        the shorter tail band."""
+        f1 = min(c1, nb_full)
+        groups = [(c0, f1, band_h, nt_full, c0 * nt_full)] if c0 < f1 else []
+        if h_tail and c1 > nb_full:
+            groups.append((nb_full, nb_full + 1, h_tail,
+                           _band_tiles(w, h_tail, bs), nb_full * nt_full))
+        return groups
+
     def decode_range(self, blob: bytes, start: int, length: int) -> bytes:
         """Random-access decode of ``[start, start + length)`` (sharded
         layout only): only the covering chunks are decoded, each from its
@@ -532,8 +812,11 @@ class TorchCodec:
             return b""
         cs = hdr["chunk_size"]
         c0, c1 = start // cs, (start + length - 1) // cs + 1
-        step = self._stage_step(blob, hdr, c0, c1, c1 - c0)
-        flat = self.run_decode_steps(hdr, [step])[0].cpu().numpy()
+        if hdr["flags"] & FLAG_ADAPT:
+            flat = self._decode_adapt_bands(blob, hdr, c0, c1).cpu().numpy()
+        else:
+            step = self._stage_step(blob, hdr, c0, c1, c1 - c0)
+            flat = self.run_decode_steps(hdr, [step])[0].cpu().numpy()
         lo = start - c0 * cs
         return flat[lo: lo + length].tobytes()
 
@@ -560,24 +843,40 @@ class TorchCodec:
         counts = np.clip(hdr["total"] - np.arange(rows, dtype=np.int64) * rcs,
                          0, rcs).astype(np.int32)
         dev = self.device
-        return {"rcs": rcs,
-                "flat": torch.from_numpy(flat.view(np.int32)).to(dev),
-                "lw": torch.from_numpy(lane_words).to(dev),
-                "tables": torch.from_numpy(tables).to(dev),
-                "counts": torch.from_numpy(counts).to(dev)}
+        st = {"rcs": rcs,
+              "flat": torch.from_numpy(flat.view(np.int32)).to(dev),
+              "lw": torch.from_numpy(lane_words).to(dev),
+              "tables": torch.from_numpy(tables).to(dev),
+              "counts": torch.from_numpy(counts).to(dev)}
+        if hdr["flags"] & FLAG_ADAPT:
+            st["dirs"] = torch.from_numpy(hdr["dirs"]).to(dev)
+            key = "group_offs" if hdr["flags"] & FLAG_AGROUP else "tile_lens"
+            st[key] = torch.from_numpy(hdr[key].astype(np.int32)).to(dev)
+        return st
 
     def run_global_decode(self, hdr: dict, st: dict):
-        """The decode compute of a staged global-layout container:
-        ((orig + 8,) uint8, the decoded length) on the device, without
-        synchronising."""
+        """The decode compute of a staged global-layout container: (at
+        least ``orig`` bytes uint8, the decoded length) on the device,
+        without synchronising."""
         # repad is per lane, so the pseudo-chunk rows re-pad as they are
         words = kernels.repad_words(st["flat"], st["lw"], hdr["wl_bucket"])
         chunks = canonical_decode_batch(
             words, st["tables"], st["lw"], st["counts"], lane=hdr["lane"],
             out_len=st["rcs"], max_len=hdr["max_len_bucket"])
-        return _decode_stream_tail(chunks.reshape(-1), hdr["total"],
-                                   hdr["orig"] + 8,
-                                   bool(hdr["flags"] & FLAG_DIFF))
+        stream = chunks.reshape(-1)
+        use_diff = bool(hdr["flags"] & FLAG_DIFF)
+        if not hdr["flags"] & FLAG_ADAPT:
+            return _decode_stream_tail(stream, hdr["total"], hdr["orig"] + 8,
+                                       use_diff)
+        w, h, bs = hdr["w"], hdr["h"], hdr["bs"]
+        if hdr["flags"] & FLAG_AGROUP:
+            tl = adapt_group_tile_lens(
+                stream, st["group_offs"], hdr["total"], w, h, bs,
+                GROUP_K * rle_max_encoded_len(bs * bs))[: len(hdr["dirs"])]
+        else:
+            tl = st["tile_lens"]
+        return _decode_adapt_tail(stream, tl, st["dirs"], w, h, bs,
+                                  use_diff), w * h
 
     def _decode_global(self, blob: bytes, hdr: dict) -> torch.Tensor:
         out, m = self.run_global_decode(hdr, self.stage_global(blob, hdr))
@@ -601,7 +900,9 @@ class TorchCodec:
         if hdr["orig"] == 0:
             return b""
         self._check_supported(hdr)
-        if hdr["flags"] & FLAG_SHARDED:
+        if hdr["flags"] & FLAG_SHARDED and hdr["flags"] & FLAG_ADAPT:
+            flat = self._decode_adapt_bands(blob, hdr, 0, hdr["n_chunks"])
+        elif hdr["flags"] & FLAG_SHARDED:
             flat = torch.cat(self.decode_steps(blob, hdr))
         else:
             flat = self._decode_global(blob, hdr)
@@ -639,7 +940,7 @@ class TorchCodec:
                 hdr["group_offs"] = np.frombuffer(blob, "<u4", ng, pos).copy()
                 pos += 4 * ng
             else:
-                tw = _tile_len_width(bs)
+                tw = tile_len_width(bs)
                 hdr["tile_lens"] = np.frombuffer(blob, f"<u{tw}", nt,
                                                  pos).copy()
                 pos += tw * nt

@@ -1,5 +1,6 @@
-"""The seven hand-written CUDA kernels of the sharded and the global
-canonical round trips.
+"""The hand-written CUDA kernels of the port: the seven of the sharded
+and the global canonical round trips, the tile mode of the first (the
+adaptive band stage) and the group walk of the grouped adaptive manifest.
 
 Each kernel has three parts here:
 
@@ -74,24 +75,55 @@ def _launch(src: str, symbol: str, ptrs, ints, dev):
 
 
 # ---------------------------------------------------------------------------
-# 1. fused diff + MNP-5 RLE encode
+# 1. fused diff + MNP-5 RLE encode; 1b. its tile mode
 # ---------------------------------------------------------------------------
 
 
-def rle_diff_encode_plain(chunks, lengths, carries, use_diff: bool, cap: int):
-    work = diff_apply(chunks, carries) if use_diff else chunks
-    return _rle.rle_encode(work, lengths, cap)
+def _check_tile(n: int, tile: int, use_diff: bool) -> None:
+    if tile & (tile - 1) or n % tile:
+        raise ValueError("tile must be a power of two dividing n")
+    if use_diff:
+        raise ValueError("tile mode requires use_diff=False")
+
+
+def rle_diff_encode_plain(chunks, lengths, carries, use_diff: bool, cap: int,
+                          tile: int = 0):
+    if not tile:
+        work = diff_apply(chunks, carries) if use_diff else chunks
+        return _rle.rle_encode(work, lengths, cap)
+    # every tile of a row encoded alone, the streams concatenated in order
+    C, n = chunks.shape
+    _check_tile(n, tile, use_diff)
+    nt = n // tile
+    t0 = torch.arange(nt, device=chunks.device) * tile
+    tile_lens = (lengths.to(torch.int64)[:, None] - t0).clamp(0, tile)
+    tcap = _rle.rle_max_encoded_len(tile)
+    s, ln = _rle.rle_encode(chunks.reshape(C * nt, tile),
+                            tile_lens.reshape(-1), tcap)
+    return _rle.rle_concat(s.view(C, nt, tcap), ln.view(C, nt), cap)
 
 
 def rle_diff_encode(chunks: torch.Tensor, lengths: torch.Tensor,
-                    carries: torch.Tensor, use_diff: bool, cap: int):
+                    carries: torch.Tensor, use_diff: bool, cap: int,
+                    tile: int = 0):
     """Per-chunk diff (seeded by ``carries``) then MNP-5 encode.
 
     chunks (C, n) uint8, lengths (C,) int32 valid bytes, carries (C,)
     uint8. Returns (streams (C, cap) uint8, zero past each end; encoded
-    lengths (C,) int32). CUDA needs n % 16 == 0."""
+    lengths (C,) int32). CUDA needs n % 16 == 0.
+
+    ``tile`` > 0 (a power of two dividing n, without diff) is the tile
+    mode: each row is n / tile tiles, every tile encoded as a stream of
+    its own (runs restart at its first byte, its last byte is a fresh
+    literal) and the tile streams concatenated in order, which is an
+    adaptive band's payload when the row holds the band's tiles in their
+    winning scan order. Its launches are counted apart, as
+    ``tile_launches``."""
+    if tile:
+        _check_tile(chunks.shape[1], tile, use_diff)
     if chunks.device.type == "cpu":
-        return rle_diff_encode_plain(chunks, lengths, carries, use_diff, cap)
+        return rle_diff_encode_plain(chunks, lengths, carries, use_diff, cap,
+                                     tile)
     dev = _check_cuda("rle_diff_encode", (chunks, torch.uint8, 2),
                       (lengths, torch.int32, 1), (carries, torch.uint8, 1))
     C, n = chunks.shape
@@ -102,12 +134,16 @@ def rle_diff_encode(chunks: torch.Tensor, lengths: torch.Tensor,
     if C:
         _launch("rle_encode", "rle_encode_launch",
                 (chunks, lengths, carries, streams, out_lens),
-                (C, n, cap, int(use_diff)), dev)
-        rle_diff_encode.launches += 1
+                (C, n, cap, int(use_diff), tile), dev)
+        if tile:
+            rle_diff_encode.tile_launches += 1
+        else:
+            rle_diff_encode.launches += 1
     return streams, out_lens
 
 
 rle_diff_encode.launches = 0
+rle_diff_encode.tile_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -412,14 +448,96 @@ def rle_expand(streams: torch.Tensor, is_cnt: torch.Tensor,
 rle_expand.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# tile lengths of a grouped adaptive manifest (no TPU kernel: the JAX
+# package runs this walk as an XLA scan)
+# ---------------------------------------------------------------------------
+
+
+def group_tile_lens_plain(stream, group_offs, sizes, total: int,
+                          group_cap: int):
+    """One step per stream byte of the longest group, every group at
+    once: the decoder FSM with a restart each time a tile's output size
+    is reached."""
+    dev = stream.device
+    ng = group_offs.shape[0]
+    K = sizes.shape[0] // ng
+    goff = group_offs.to(torch.int64)
+    end = torch.cat([goff[1:], torch.tensor([total], device=dev)])
+    glen = (end - goff).clamp(max=group_cap)
+    steps = max(int(glen.max()), 0) if ng else 0
+    j = torch.arange(steps, device=dev)
+    at = (goff[:, None] + j).clamp(0, max(stream.shape[0] - 1, 0))
+    seg = stream.to(torch.int64)[at]  # (ng, steps)
+    # a trailing zero column: the tile size once a group's tiles are done
+    sz = torch.cat([sizes.view(ng, K).to(torch.int64),
+                    torch.zeros((ng, 1), dtype=torch.int64, device=dev)], 1)
+    lens = torch.zeros((ng, K + 1), dtype=torch.int64, device=dev)
+    zero = torch.zeros(ng, dtype=torch.int64, device=dev)
+    t_rel, produced, match, count = zero, zero, zero - 1, zero
+    for p in range(steps):
+        byte = seg[:, p]
+        active = p < glen
+        is_cnt = count == 3
+        new_match = torch.where(is_cnt, match, byte)
+        eq = (match == byte) & ~is_cnt
+        new_count = torch.where(is_cnt, 0, torch.where(eq, count + 1, 1))
+        produced2 = produced + torch.where(is_cnt, byte, 1)
+        slot = t_rel.clamp(max=K)[:, None]
+        lens.scatter_add_(1, slot, active[:, None].to(torch.int64))
+        done = produced2 >= sz.gather(1, slot)[:, 0]
+        t_rel = torch.where(active & done, t_rel + 1, t_rel)
+        produced = torch.where(active, torch.where(done, 0, produced2),
+                               produced)
+        match = torch.where(active, torch.where(done, -1, new_match), match)
+        count = torch.where(active, torch.where(done, 0, new_count), count)
+    return lens[:, :K].reshape(-1).to(torch.int32)
+
+
+def group_tile_lens(stream: torch.Tensor, group_offs: torch.Tensor,
+                    sizes: torch.Tensor, total: int, group_cap: int):
+    """Per-tile stream lengths from a grouped manifest.
+
+    stream (N,) uint8 holds concatenated per-tile MNP-5 streams, ``total``
+    bytes in all; group_offs (ng,) int32 is the offset of every K-th
+    tile's stream; sizes (ng * K,) int32 the decoded size of each tile
+    (0 past the last tile). Each group is walked through the decoder FSM
+    for at most ``group_cap`` bytes, and a tile ends where its decoded
+    size is reached. Returns (ng * K,) int32 lengths."""
+    if stream.device.type == "cpu":
+        return group_tile_lens_plain(stream, group_offs, sizes, total,
+                                     group_cap)
+    dev = _check_cuda("group_tile_lens", (stream, torch.uint8, 1),
+                      (group_offs, torch.int32, 1), (sizes, torch.int32, 1))
+    ng = group_offs.shape[0]
+    if ng == 0 or sizes.shape[0] % ng or stream.shape[0] == 0:
+        raise ValueError("group_tile_lens: needs a stream, and sizes "
+                         "holding a whole number of tiles a group")
+    lens = torch.empty_like(sizes)
+    _launch("group_tile_lens", "group_tile_lens_launch",
+            (stream, group_offs, sizes, lens),
+            (ng, sizes.shape[0] // ng, stream.shape[0], total, group_cap),
+            dev)
+    group_tile_lens.launches += 1
+    return lens
+
+
+group_tile_lens.launches = 0
+
+
 KERNELS = (rle_diff_encode, histogram256, lane_pack, repad_words,
-           lane_decode, rle_expand, lane_decode_lanemajor)
+           lane_decode, rle_expand, lane_decode_lanemajor, group_tile_lens)
+# kernel 1b shares kernel 1's wrapper and is counted under this name
+TILE_MODE = "rle_diff_encode_tile"
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    rle_diff_encode.tile_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    counts = {k.__name__: k.launches for k in KERNELS}
+    counts[TILE_MODE] = rle_diff_encode.tile_launches
+    return counts

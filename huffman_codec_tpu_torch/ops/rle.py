@@ -50,6 +50,14 @@ def _emissions(x: torch.Tensor, length: torch.Tensor):
     return emit_lit, emit_cnt, q
 
 
+def rle_encoded_size(x: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """Encoded byte count (C,) int64 of each (C, n) row's valid prefix:
+    the emission rule with the writes left out, for the adaptive search
+    and the scan-direction pick."""
+    emit_lit, emit_cnt, _ = _emissions(x, length)
+    return emit_lit.sum(dim=1) + emit_cnt.sum(dim=1)
+
+
 def rle_encode(x: torch.Tensor, length: torch.Tensor, out_len: int):
     """MNP-5 encode of each (C, n) uint8 row's valid prefix. Returns
     (streams (C, out_len) uint8, zero past each row's end, and the encoded
@@ -65,6 +73,24 @@ def rle_encode(x: torch.Tensor, length: torch.Tensor, out_len: int):
     cnt_at = row + off + emit_lit.to(torch.int64)
     out[cnt_at[emit_cnt]] = (q - 2)[emit_cnt].to(torch.uint8)
     return out.view(C, out_len), total.to(torch.int32)
+
+
+def rle_concat(rows: torch.Tensor, lens: torch.Tensor, out_len: int):
+    """Concatenate the valid prefixes of (B, k, w) uint8 rows, ``lens``
+    (B, k) bytes each, in order, into (B, out_len) uint8 zero past each
+    end; bytes that would land past ``out_len`` are dropped. Returns the
+    buffers and the totals (B,) int32."""
+    B, k, w = rows.shape
+    dev = rows.device
+    ln = lens.to(torch.int64)
+    off = torch.cumsum(ln, dim=1) - ln
+    j = torch.arange(w, device=dev)
+    at = off[:, :, None] + j
+    kept = (j < ln[:, :, None]) & (at < out_len)
+    at = at + torch.arange(B, device=dev)[:, None, None] * out_len
+    out = torch.zeros(B * out_len, dtype=torch.uint8, device=dev)
+    out[at[kept]] = rows[kept]
+    return out.view(B, out_len), ln.sum(dim=1).to(torch.int32)
 
 
 def _entry_state(entry: torch.Tensor, b0: torch.Tensor, b1: torch.Tensor):

@@ -107,8 +107,6 @@ def test_config_crosses_packages():
 
 
 @pytest.mark.parametrize("cfg", [
-    CodecConfig(use_adapt=True),  # global layout, adaptive
-    CodecConfig(layout="sharded", use_adapt=True),
     CodecConfig(layout="sharded", entropy="fgk"),
 ])
 def test_unsupported_configs_raise(cfg):
@@ -135,8 +133,6 @@ def test_non_v3_input_raises():
 
 
 @pytest.mark.parametrize("hdr", [
-    {"flags": tch.FLAG_ADAPT, "entropy": 1},  # global layout, adaptive
-    {"flags": tch.FLAG_SHARDED | tch.FLAG_ADAPT, "entropy": 1},
     {"flags": tch.FLAG_SHARDED, "entropy": 0},  # FGK
 ])
 def test_unsupported_containers_raise(hdr):

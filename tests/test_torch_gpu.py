@@ -13,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from huffman_codec_tpu_torch import CodecConfig, TorchCodec  # noqa: E402
+from huffman_codec_tpu_torch.ops import adapt as tad  # noqa: E402
 from huffman_codec_tpu_torch.ops import canonical as tcan  # noqa: E402
 from huffman_codec_tpu_torch.ops import kernels as K  # noqa: E402
 from huffman_codec_tpu_torch.ops import rle as trle  # noqa: E402
@@ -151,3 +152,80 @@ def test_gpu_global_container_equals_cpu_plain_path(cuda, use_diff, n):
     hdr = gpu._parse(blob)
     fat = hdr["n_chunks"] == 1 and hdr["lane"] > 4096
     assert K.launch_counts()["lane_decode_lanemajor"] == int(fat)
+
+
+def _image(rows, width, seed):
+    rng = np.random.default_rng(seed)
+    i = np.arange(rows * width)
+    x = ((((i // width) * 3 + (i % width) * 2) // 5
+          + rng.integers(-1, 2, i.size)) & 255).astype(np.uint8)
+    x[1000:4000] = 5  # a run across many tiles
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [64, 1024, 4096])
+def test_tile_mode_kernel_matches_plain(cuda, tile):
+    rng = np.random.default_rng(11)
+    rows = np.stack([_image(8, 512, 12), rng.integers(0, 256, CS),
+                     np.full(CS, 7), rng.integers(0, 2, CS),
+                     np.r_[np.full(258, 3), np.full(259, 4),
+                           np.zeros(CS - 517)]]).astype(np.uint8)
+    chunks = torch.from_numpy(rows).to(cuda)
+    lens = torch.tensor([CS, CS, CS, 1000, CS], dtype=torch.int32,
+                        device=cuda)
+    zero = torch.zeros(5, dtype=torch.uint8, device=cuda)
+    K.reset_launches()
+    s, ln = K.rle_diff_encode(chunks, lens, zero, False, CAP, tile=tile)
+    counts = K.launch_counts()
+    assert counts[K.TILE_MODE] == 1 and counts["rle_diff_encode"] == 0
+    ps, pln = K.rle_diff_encode_plain(chunks, lens, zero, False, CAP, tile)
+    assert torch.equal(ln, pln) and torch.equal(s, ps)
+    with pytest.raises(ValueError):
+        K.rle_diff_encode(chunks, lens, zero, True, CAP, tile=tile)
+
+
+@pytest.mark.cuda
+def test_group_walk_kernel_matches_plain(cuda):
+    x = torch.from_numpy(_image(72, 64, 13)).to(cuda)
+    stream, total, _, tl = tad.adapt_encode_fixed(x, 64, 72, 8,
+                                                  with_header=False)
+    offs = (torch.cumsum(tl, 0) - tl)[:: tad.GROUP_K].to(torch.int32)
+    sizes = torch.zeros(2 * tad.GROUP_K, dtype=torch.int32, device=cuda)
+    sizes[:72] = 64
+    cap = tad.GROUP_K * trle.rle_max_encoded_len(64)
+    K.reset_launches()
+    got = K.group_tile_lens(stream, offs.contiguous(), sizes, int(total), cap)
+    assert K.launch_counts()["group_tile_lens"] == 1
+    assert torch.equal(got, K.group_tile_lens_plain(stream, offs, sizes,
+                                                    int(total), cap))
+    assert torch.equal(got[:72], tl) and not got[72:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_diff", [False, True])
+@pytest.mark.parametrize("layout", ["sharded", "global"])
+def test_gpu_adaptive_container_equals_cpu_plain_path(cuda, layout, use_diff):
+    # 69 rows in bands of 16: four full bands (the tile-mode kernel) and a
+    # 5-row tail (the torch-op tile encode)
+    rows, width = (69, 64) if layout == "sharded" else (512, 512)
+    data = _image(rows, width, 14).tobytes()
+    cfg = CodecConfig(use_adapt=True, use_diff=use_diff, width=width,
+                      chunk_size=16 * width if layout == "sharded" else 65536,
+                      lane=64 if layout == "sharded" else 512, layout=layout)
+    gpu = TorchCodec(cfg)
+    K.reset_launches()
+    blob = gpu.encode(data)
+    assert K.launch_counts()[K.TILE_MODE] == int(layout == "sharded")
+    assert blob == TorchCodec(cfg, device="cpu").encode(data)
+    assert gpu.decode(blob) == data
+    if layout == "sharded":
+        assert gpu.decode_range(blob, 1000, 2000) == data[1000:3000]
+    else:
+        walks = K.launch_counts()["group_tile_lens"]
+        v3 = gpu._encode_global(data, 8, True)  # 4096 tiles: grouped
+        assert gpu._parse(v3)["flags"] & 0x10
+        assert v3 == TorchCodec(cfg, device="cpu")._encode_global(data, 8,
+                                                                  True)
+        assert gpu.decode(v3) == data
+        assert K.launch_counts()["group_tile_lens"] == walks + 1
