@@ -43,6 +43,7 @@ result, when there is no GPU or any phase fails.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -52,9 +53,12 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-# The kernels do integer work outside the tensor cores; the data sheet's
-# rate for that class of unit is the float32 one.
-OPS_PER_S = 67e12
+# The kernels' operations are 32-bit integer work: Hopper issues 64 INT32
+# operations a clock on each of its 132 SMs.
+INT32_OPS_PER_CLOCK = 132 * 64
+# device clocks to spin per timed run, so that the host has enqueued every
+# run before the first starts (a wrapper call costs tens of microseconds)
+QUEUE_CYCLES_PER_RUN = 400_000
 STEP = 256  # chunks per step on the main path
 CS = 1 << 16
 LANE = 512
@@ -77,19 +81,38 @@ def gradient_input(n: int, seed: int) -> np.ndarray:
     return ((base + noise) & 255).astype(np.uint8)
 
 
+@functools.lru_cache(maxsize=1)
+def int32_ops_per_s() -> float:
+    """The card's INT32 rate at the maximum SM clock nvidia-smi reports."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0]
+    return INT32_OPS_PER_CLOCK * float(mhz) * 1e6
+
+
 def bound_of(nbytes: int, ops: int):
     """(bound_ms, bound_by): the least time the card could take, the larger
-    of the bytes over the memory rate and the operations over the peak."""
-    by, op = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    of the bytes over the memory rate and the operations over the INT32
+    rate."""
+    by, op = nbytes / HBM_BYTES_PER_S * 1e3, ops / int32_ops_per_s() * 1e3
     return (by, "bytes") if by >= op else (op, "operations")
 
 
-def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
+def cuda_ms(fn, reps: int = 10, warm: int = 2,
+            queued: bool = False) -> float:
+    """Mean time of ``fn`` over ``reps`` runs between two CUDA events. With
+    ``queued`` the runs are enqueued behind a spin of device work, so the
+    events time the device alone and not the host's rate of launching
+    (what a kernel costs inside a longer chain of launches); without it a
+    stage that launches faster than the host can issue shows that cost."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES_PER_RUN * reps)
     a.record()
     for _ in range(reps):
         fn()
@@ -145,7 +168,6 @@ def kernel_chain(K, chunks, in_lens, carries, use_diff, errs, shapes):
     its plain version on the same inputs (tolerance 0: integer codec)."""
     from huffman_codec_tpu_torch.models.chunked import _sharded_cap, _strip_payload
     from huffman_codec_tpu_torch.ops.canonical import assign_codes, build_lengths_pm
-    from huffman_codec_tpu_torch.ops.rle import rle_classify
 
     def sync():  # surface a fault of the launch just made, where it happened
         if chunks.is_cuda:
@@ -185,17 +207,16 @@ def kernel_chain(K, chunks, in_lens, carries, use_diff, errs, shapes):
     same("lane_decode", dec, K.lane_decode_plain(pb, lt, rl, LANE, max_len),
          errs)
     same("lane_decode.vs_streams", dec, st, errs)
-    ic = rle_classify(dec, rl)
-    out = K.rle_expand(dec, ic, rl, carries, n, use_diff)
+    out = K.rle_expand(dec, rl, carries, n, use_diff)
     sync()
-    same("rle_expand", out, K.rle_expand_plain(dec, ic, rl, carries, n,
+    same("rle_expand", out, K.rle_expand_plain(dec, rl, carries, n,
                                                 use_diff), errs)
     valid = torch.arange(n, device=chunks.device)[None, :] < in_lens[:, None]
     same("round_trip", torch.where(valid, out, 0), torch.where(valid, chunks, 0),
          errs)
     shapes.update(chunks=chunks, in_lens=in_lens, carries=carries, st=st,
                   rl=rl, tables=tables, lw=lw, flat=flat, wb=wb, pb=pb, lt=lt,
-                  max_len=max_len, dec=dec, ic=ic, use_diff=use_diff, cap=cap,
+                  max_len=max_len, dec=dec, use_diff=use_diff, cap=cap,
                   counts=counts, lens=lens)
 
 
@@ -223,6 +244,58 @@ def edge_batch(dev):
 
 GLOBAL_SIZES = (1 << 18, 5 << 18, 10 << 18, 64 << 20)  # 1, 5, 10 tiles; bulk
 BUCKETS = (8, 12, 16, 24, 31)
+
+
+def decode_edges(K, dev, errs):
+    """Kernels 5 and 6 against their plain versions on the edge batches of
+    ``huffman_codec_tpu_torch/edge_cases.py``: run-heavy streams at the
+    sharded step's row width (count bytes at the kernel's segment and tile
+    borders, count byte 255 restarts, rows of length 0, 1 and 2), and codes
+    of every max_len bucket with partial and empty lanes at lane 512, 2048
+    and 4096 (the deepest, 26 bits, in the 31 bucket)."""
+    from huffman_codec_tpu_torch.edge_cases import (
+        lane_edge_rows, pack_lane_rows, rle_edge_rows)
+    from huffman_codec_tpu_torch.models.chunked import _sharded_cap
+
+    cap = _sharded_cap(CS, "canonical", LANE)
+    s, ln, car = (torch.from_numpy(a).to(dev)
+                  for a in rle_edge_rows(cap, SEED + 21))
+    for out_len in (128, CS, 4 * CS):  # 128: every row cut short
+        for d in (False, True):
+            got = K.rle_expand(s, ln, car, out_len, d)
+            torch.cuda.synchronize()
+            same("rle_expand", got,
+                 K.rle_expand_plain(s, ln, car, out_len, d), errs)
+    for lane, nl in ((512, 8), (2048, 3), (4096, 2)):
+        for depth, bucket in zip((8, 12, 16, 24, 26), BUCKETS):
+            sy, ln, lt = (torch.from_numpy(a).to(dev) for a in
+                          lane_edge_rows(lane, nl, SEED + depth, depth))
+            pb = pack_lane_rows(sy, ln, lt, lane)
+            dec = K.lane_decode(pb, lt, ln, lane, bucket)
+            torch.cuda.synchronize()
+            same("lane_decode", dec,
+                 K.lane_decode_plain(pb, lt, ln, lane, bucket), errs)
+            valid = torch.arange(nl * lane, device=dev)[None, :] < ln[:, None]
+            same("lane_decode.vs_input", dec, torch.where(valid, sy, 0), errs)
+    # lanes that do not divide by 16 (the kernel stores them 4 bytes a
+    # thread) at a stride that does not divide by 4, packed by the plain
+    # versions on the host
+    for lane in (100, 36):
+        sy, ln, lt = (torch.from_numpy(a) for a in
+                      lane_edge_rows(lane, 5, SEED + lane, 26))
+        pb = pack_lane_rows(sy, ln, lt, lane, wb_pad=3)
+        pb, lt, ln, sy = pb.to(dev), lt.to(dev), ln.to(dev), sy.to(dev)
+        dec = K.lane_decode(pb, lt, ln, lane, 31)
+        torch.cuda.synchronize()
+        same("lane_decode", dec, K.lane_decode_plain(pb, lt, ln, lane, 31),
+             errs)
+        valid = torch.arange(5 * lane, device=dev)[None, :] < ln[:, None]
+        same("lane_decode.vs_input", dec, torch.where(valid, sy, 0), errs)
+    log(f"decode edges: rle_expand on {tuple(s.shape)} run-heavy rows to "
+        f"128, {CS} and {4 * CS} B, diff on and off; lane_decode at lane 512, "
+        "2048, 4096 x max_len 8, 12, 16, 24, 31 and at lane 100 and 36 "
+        "(stride not a multiple of 4): equal to their plain versions and "
+        "to the input")
 
 
 def global_chain(K, cfg, x, whole, errs):
@@ -442,8 +515,9 @@ def global_path(K, TorchCodec, CodecConfig, x, errs):
     k7 = {}
     for n, g in whole.items():
         args = (g["pb"], g["lt"], g["cnt"], g["lane"], g["max_len"])
-        ms = cuda_ms(lambda: K.lane_decode_lanemajor(*args), reps=10)
-        ms5 = cuda_ms(lambda: K.lane_decode(*args), reps=5)
+        ms = cuda_ms(lambda: K.lane_decode_lanemajor(*args), reps=10,
+                     queued=True)
+        ms5 = cuda_ms(lambda: K.lane_decode(*args), reps=5, queued=True)
         same("lane_decode_lanemajor.vs_lane_decode",
              K.lane_decode_lanemajor(*args), K.lane_decode(*args), errs)
         rows, nl = g["shape"]
@@ -470,7 +544,8 @@ def global_path(K, TorchCodec, CodecConfig, x, errs):
              4 * int(g["lw"].sum()) + 4 * g["lw"].numel()
              + 4 * g["lw"].numel() * g["wb"])):
         log(f"{name} at the 2.5 MiB whole-file chunk (1 x {L}, lane "
-            f"{g['lane']}): {cuda_ms(fn, reps=10):.4f} ms, bound "
+            f"{g['lane']}): {cuda_ms(fn, reps=10, queued=True):.4f} ms, "
+            f"bound "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} B)")
     stage_split(K, g)
     del whole, g
@@ -549,19 +624,16 @@ def tile_rows_check(K, A, streams, tile_lens, dirs, want, w, h, bs, errs):
     tile) held against its plain version at that shape, and the placed
     tiles against the (B, h * w) matrices ``want``. Returns the shape of
     the rows and the kernel's time."""
-    from huffman_codec_tpu_torch.ops.rle import rle_classify
-
     enc, rows_len = A._cut_tile_rows(streams, tile_lens, bs)
-    ic = rle_classify(enc, rows_len)
     zero = torch.zeros(enc.shape[0], dtype=torch.uint8, device=enc.device)
-    tiles = K.rle_expand(enc, ic, rows_len, zero, bs * bs, False)
+    tiles = K.rle_expand(enc, rows_len, zero, bs * bs, False)
     torch.cuda.synchronize()
     same("rle_expand", tiles,
-         K.rle_expand_plain(enc, ic, rows_len, zero, bs * bs, False), errs)
+         K.rle_expand_plain(enc, rows_len, zero, bs * bs, False), errs)
     same("rle_expand.tiles_round_trip",
          A._place_tiles(tiles, dirs, w, h, bs), want, errs)
-    ms = cuda_ms(lambda: K.rle_expand(enc, ic, rows_len, zero, bs * bs,
-                                      False), reps=10)
+    ms = cuda_ms(lambda: K.rle_expand(enc, rows_len, zero, bs * bs, False),
+                 reps=10, queued=True)
     return tuple(enc.shape), ms
 
 
@@ -583,7 +655,7 @@ def emission_rows_check(K, A, matrix, w, h, bs, errs):
     got = K.histogram256(rows, full)
     torch.cuda.synchronize()
     same("histogram256", got, K.histogram256_plain(rows, full), errs)
-    ms = cuda_ms(lambda: K.histogram256(rows, full), reps=10)
+    ms = cuda_ms(lambda: K.histogram256(rows, full), reps=10, queued=True)
     nbytes = rows.numel() + 4 * rows.shape[0] + 1024 * rows.shape[0]
     return tuple(rows.shape), ms, nbytes / HBM_BYTES_PER_S * 1e3
 
@@ -639,13 +711,16 @@ def sharded_adapt_chain(K, A, codec, xd, bs, cap, errs):
                                    errs)
     times = {
         K.TILE_MODE: cuda_ms(lambda: K.rle_diff_encode(
-            win, full, zero, False, cap, tile=bs * bs), reps=10),
-        "histogram256": cuda_ms(lambda: K.histogram256(st, rl), reps=10),
+            win, full, zero, False, cap, tile=bs * bs), reps=10, queued=True),
+        "histogram256": cuda_ms(lambda: K.histogram256(st, rl), reps=10,
+                                queued=True),
         "lane_pack": cuda_ms(lambda: K.lane_pack(st, rl, tables, LANE),
-                             reps=10),
-        "repad_words": cuda_ms(lambda: K.repad_words(flat, lw, wb), reps=10),
+                             reps=10, queued=True),
+        "repad_words": cuda_ms(lambda: K.repad_words(flat, lw, wb), reps=10,
+                               queued=True),
         "lane_decode": cuda_ms(lambda: K.lane_decode(pb, lt, rl, LANE,
-                                                     max_len), reps=10),
+                                                     max_len), reps=10,
+                             queued=True),
         f"rle_expand {shape}": t_exp,
     }
     return nb, times
@@ -716,7 +791,7 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
         plain_ms = (time.perf_counter() - t) * 1e3
         same("group_tile_lens", got, want, errs)
         same("group_tile_lens.vs_tile_lens", got, tl, errs)
-        ms = cuda_ms(lambda: K.group_tile_lens(*args), reps=10)
+        ms = cuda_ms(lambda: K.group_tile_lens(*args), reps=10, queued=True)
         # the stream and the manifest read once, the lengths written once;
         # a dozen integer operations a stream byte
         bound, by = bound_of(int(total) + 4 * offs.numel()
@@ -900,7 +975,8 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
     for b in wins:
         w_b = wins[b][0]
         per_t[b * b] = cuda_ms(lambda: K.rle_diff_encode(
-            w_b, full, zero, False, cap, tile=b * b), reps=20, warm=3)
+            w_b, full, zero, False, cap, tile=b * b), reps=20, warm=3,
+            queued=True)
     ms = per_t[bs * bs]
     plain_ms = cuda_ms(lambda: K.rle_diff_encode_plain(
         win, full, zero, False, cap, bs * bs), reps=2, warm=1)
@@ -955,9 +1031,8 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
         words, st["tables"], st["lw"], st["rl"], lane=LANE, out_len=cap,
         max_len=hdr["max_len_bucket"])
     enc_rows, rows_len = A._cut_tile_rows(streams, st["tile_lens"], bs)
-    ic = rle_classify(enc_rows, rows_len)
     zrows = torch.zeros(enc_rows.shape[0], dtype=torch.uint8, device=dev)
-    tiles = K.rle_expand(enc_rows, ic, rows_len, zrows, bs * bs, False)
+    tiles = K.rle_expand(enc_rows, rows_len, zrows, bs * bs, False)
     placed = A._place_tiles(tiles, st["dirs"], ADAPT_W, BAND_H, bs)
     dec_stages = {
         "entropy decode (repad + lane decode)": lambda: canonical_decode_batch(
@@ -966,17 +1041,19 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
             max_len=hdr["max_len_bucket"]),
         "cut tile rows": lambda: A._cut_tile_rows(streams, st["tile_lens"],
                                                   bs),
-        "rle_classify": lambda: rle_classify(enc_rows, rows_len),
-        "rle_expand": lambda: K.rle_expand(enc_rows, ic, rows_len, zrows,
-                                           bs * bs, False),
+        "rle_expand (classify fused)": lambda: K.rle_expand(
+            enc_rows, rows_len, zrows, bs * bs, False),
         "place tiles": lambda: A._place_tiles(tiles, st["dirs"], ADAPT_W,
                                               BAND_H, bs),
         "diff_revert": lambda: diff_revert(placed, st["car"]),
     }
     log(f"sharded-adaptive decode stages, 256 bands, bs {bs}, "
         f"{enc_rows.shape[0]} tile rows of {enc_rows.shape[1]} (ms):",
-        {k: round(cuda_ms(f, reps=5), 3) for k, f in dec_stages.items()})
-    del staged, st, words, streams, enc_rows, ic, tiles, placed, dec_stages
+        {k: round(cuda_ms(f, reps=5), 3) for k, f in dec_stages.items()},
+        "; rle_classify as torch ops on the same rows, which the decode no "
+        "longer runs:",
+        round(cuda_ms(lambda: rle_classify(enc_rows, rows_len), reps=5), 3))
+    del staged, st, words, streams, enc_rows, tiles, placed, dec_stages
     del wins, work, step
 
     # -- times: search, device encode and decode, peak memory ------------------
@@ -1110,6 +1187,7 @@ def main() -> int:
     ec, el, ecar = edge_batch(dev)
     for use_diff in (False, True):
         kernel_chain(K, ec, el, ecar, use_diff, errs, {})
+    decode_edges(K, dev, errs)
     log("kernels vs plain: all equal; max abs err", max(errs.values()))
 
     # -- the main path: 64 MiB round trips, launches counted ----------------
@@ -1194,9 +1272,7 @@ def main() -> int:
         return out.masked_scatter_(mk, s["flat"])
 
     # integer operations each kernel needs on this step's data, counted
-    # per element: a handful of compares, shifts and adds a byte, and for
-    # the decode the length search over the code's bits (three a bit)
-    bits_per_sym = 32 * sum_lw / max(sum_rl, 1)
+    # per element: a handful of compares, shifts and adds a byte
     specs = [
         ("rle_diff_encode", "rle_encode.cu", 944,
          lambda: K.rle_diff_encode(s["chunks"], s["in_lens"], s["carries"],
@@ -1225,20 +1301,26 @@ def main() -> int:
          lambda: K.lane_decode(s["pb"], s["lt"], s["rl"], LANE, s["max_len"]),
          lambda: K.lane_decode_plain(s["pb"], s["lt"], s["rl"], LANE,
                                      s["max_len"]),
-         None, 4 * sum_lw + 260 * C + C * nl * LANE,
-         int((3 * bits_per_sym + 6) * sum_rl)),
+         # what decoding needs: a symbol is one table lookup, the shift of
+         # the window and its store, four operations (the kernel's table
+         # yields up to three symbols a lookup)
+         None, 4 * sum_lw + 260 * C + C * nl * LANE, 4 * sum_rl),
         ("rle_expand", "rle_expand.cu", 1031,
-         lambda: K.rle_expand(s["dec"], s["ic"], s["rl"], s["carries"], CS,
-                              True),
-         lambda: K.rle_expand_plain(s["dec"], s["ic"], s["rl"], s["carries"],
-                                    CS, True),
-         None, 2 * sum_rl + 5 * C + C * CS, 6 * C * CS),
+         lambda: K.rle_expand(s["dec"], s["rl"], s["carries"], CS, True),
+         lambda: K.rle_expand_plain(s["dec"], s["rl"], s["carries"], CS,
+                                    True),
+         # what decoding needs: a stream byte is one step of the serial
+         # decoder's FSM, four operations; an output byte its diff sum and
+         # its store, two (the kernel's own maps, four FSM chains a byte,
+         # and its scans are more work than the function needs)
+         None, sum_rl + 5 * C + C * CS, 4 * sum_rl + 2 * sum_in),
     ]
     rows = []
     for name, src, line, kern, plain, lib, nbytes, n_ops in specs:
-        ms = cuda_ms(kern, reps=20, warm=3)
+        ms = cuda_ms(kern, reps=20, warm=3, queued=True)
+        host_ms = cuda_ms(kern, reps=20, warm=3)
         pms = cuda_ms(plain, reps=2, warm=1)
-        lms = cuda_ms(lib, reps=20, warm=3) if lib else None
+        lms = cuda_ms(lib, reps=20, warm=3, queued=True) if lib else None
         bound, bound_by = bound_of(nbytes, n_ops)
         rows.append({
             "name": name, "route": "cuda",
@@ -1248,8 +1330,10 @@ def main() -> int:
             "max_abs_err": max(v for k, v in errs.items()
                                if k.split(".")[0] == name),
             "ms": ms, "plain_ms": pms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": lms})
-        log(f"{name:16s} {ms:9.4f} ms  plain {pms:10.3f} ms  bound "
+            "bound_by": bound_by, "library_ms": lms,
+            "host_paced_ms": host_ms})
+        log(f"{name:16s} {ms:9.4f} ms (host-paced {host_ms:.4f})  plain "
+            f"{pms:10.3f} ms  bound "
             f"{bound:.4f} ms by {bound_by} ({nbytes} B)  library "
             f"{lms if lms is None else round(lms, 4)}  launches "
             f"{launches[name]}")
@@ -1260,8 +1344,24 @@ def main() -> int:
         "assign_codes": lambda: assign_codes(s["lens"]),
         "strip_payload": lambda: _strip_payload(buf_s, s["lw"]),
     }
-    log("torch ops per 256-chunk step (ms):", {
-        k: round(cuda_ms(f, reps=5), 3) for k, f in ops.items()})
+    log("torch ops per 256-chunk step (ms; rle_classify is what the decode "
+        "no longer runs):", {
+            k: round(cuda_ms(f, reps=5), 3) for k, f in ops.items()})
+    # kernel 5 on the same streams packed at the wider lanes it serves
+    by_lane = {LANE: rows[4]["ms"]}
+    for lane in (2048, 4096):
+        buf_l, bits_l = K.lane_pack(s["st"], s["rl"], s["tables"], lane)
+        lw_l = ((bits_l + 31) >> 5).to(torch.int32)
+        wb_l = max(8, -(-int(lw_l.max()) // 16) * 16)
+        pb_l = K.repad_words(_strip_payload(buf_l, lw_l).contiguous(), lw_l,
+                             wb_l).view(C, -1, wb_l)
+        dec_l = K.lane_decode(pb_l, s["lt"], s["rl"], lane, s["max_len"])
+        same("lane_decode.vs_streams", dec_l, s["st"], errs)
+        by_lane[lane] = cuda_ms(lambda: K.lane_decode(
+            pb_l, s["lt"], s["rl"], lane, s["max_len"]), reps=20, warm=3,
+            queued=True)
+    log("lane_decode on the step's streams by lane (ms):",
+        {k: round(v, 4) for k, v in by_lane.items()})
 
     del specs, ops, buf_s, repad_lib, mk, xd
     main_shapes.clear()

@@ -23,9 +23,9 @@ per-chunk diff seeded by the carry byte and MNP-5 RLE (kernel), byte
 histogram (kernel), package-merge code lengths and canonical codes (torch
 ops), lane pack (kernel), then the padding between lanes is stripped on
 the device. Sharded decode, per step: re-pad the wire words to a fixed
-lane stride (kernel), canonical lane decode (kernel), count-byte
-classification (torch ops), MNP-5 expansion with the diff revert
-(kernel), then the crc32 check.
+lane stride (kernel), canonical lane decode (kernel), MNP-5 decode with
+the diff revert (kernel: it finds the count bytes itself), then the crc32
+check.
 
 Global encode: diff and MNP-5 RLE over the whole input as one stream
 (torch ops; runs cross chunk borders), the stream cut into chunks, the
@@ -54,8 +54,8 @@ with one block size for all bands; where bs divides the band's sides the
 band's tiles are reordered by a transpose, sized in both directions
 (torch ops) and encoded by the RLE kernel in tile mode, any other
 geometry (the shorter tail band) goes through the torch-op tile encode.
-Decode cuts every tile's stream out as a row, classifies and expands the
-rows (the expansion kernel) and puts the tiles back.
+Decode cuts every tile's stream out as a row, decodes the rows (the MNP-5
+decode kernel) and puts the tiles back.
 
 Supported: ``entropy="canonical"`` in both layouts, stream or adaptive;
 ``entropy="fgk"`` raises NotImplementedError.
@@ -103,7 +103,6 @@ from huffman_codec_tpu_torch.ops.canonical import (
 from huffman_codec_tpu_torch.ops.diff import diff_apply, diff_revert
 from huffman_codec_tpu_torch.ops.kernels import lane_words_cap
 from huffman_codec_tpu_torch.ops.rle import (
-    rle_classify,
     rle_decode,
     rle_encode,
     rle_encoded_size,
@@ -724,9 +723,8 @@ class TorchCodec:
             chunks_rle = canonical_decode_batch(
                 w, st["tables"], st["lw"], st["rl"], lane=lane, out_len=cap,
                 max_len=hdr["max_len_bucket"])
-            is_cnt = rle_classify(chunks_rle, st["rl"])
-            out = kernels.rle_expand(chunks_rle, is_cnt, st["rl"], st["car"],
-                                     cs, use_diff)
+            out = kernels.rle_expand(chunks_rle, st["rl"], st["car"], cs,
+                                     use_diff)
             parts.append(out.view(-1))
         return parts
 

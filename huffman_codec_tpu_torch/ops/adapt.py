@@ -27,7 +27,6 @@ from huffman_codec_tpu_torch.ops import kernels
 from huffman_codec_tpu_torch.ops.canonical import build_lengths_pm, histogram
 from huffman_codec_tpu_torch.ops.rle import (
     _emissions,
-    rle_classify,
     rle_concat,
     rle_encode,
     rle_max_encoded_len,
@@ -310,12 +309,12 @@ def adapt_decode_bands(streams: torch.Tensor, tile_lens: torch.Tensor,
     """Inverse of ``adapt_encode_bands`` given the per-tile manifest:
     (B, L) uint8 streams of concatenated tile data, tile_lens and dirs
     (B, n_tiles) -> (B, H * W) uint8. Every tile's stream is cut out as a
-    row of its own, the rows are classified and expanded together (the
-    expansion is the ``rle_expand`` kernel on a GPU), and the tiles go
-    back to matrix order by the inverse reorder."""
+    row of its own, the rows are decoded together (the ``rle_expand``
+    kernel on a GPU), and the tiles go back to matrix order by the
+    inverse reorder."""
     enc, rows_len = _cut_tile_rows(streams, tile_lens, bs)
     tiles = kernels.rle_expand(
-        enc, rle_classify(enc, rows_len), rows_len,
+        enc, rows_len,
         torch.zeros(enc.shape[0], dtype=torch.uint8, device=enc.device),
         bs * bs, False)
     return _place_tiles(tiles, dirs, width, height, bs)

@@ -411,8 +411,9 @@ lane_decode_lanemajor.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def rle_expand_plain(streams, is_cnt, lengths, carries, out_len: int,
+def rle_expand_plain(streams, lengths, carries, out_len: int,
                      use_diff: bool):
+    is_cnt = _rle.rle_classify(streams, lengths)
     out, total = _rle.rle_expand_runs(streams, is_cnt, lengths, out_len)
     if use_diff:
         j = torch.arange(out_len, device=streams.device)[None, :]
@@ -420,26 +421,27 @@ def rle_expand_plain(streams, is_cnt, lengths, carries, out_len: int,
     return out.to(torch.uint8)
 
 
-def rle_expand(streams: torch.Tensor, is_cnt: torch.Tensor,
-               lengths: torch.Tensor, carries: torch.Tensor, out_len: int,
+def rle_expand(streams: torch.Tensor, lengths: torch.Tensor,
+               carries: torch.Tensor, out_len: int,
                use_diff: bool) -> torch.Tensor:
-    """MNP-5 expansion of (C, n) uint8 streams given their count-byte
-    flags (C, n) bool (ops/rle.rle_classify), with the per-chunk diff
-    revert seeded by ``carries`` when ``use_diff``. Returns (C, out_len)
-    uint8, zero past each chunk's decoded length."""
+    """MNP-5 decode of (C, n) uint8 streams, ``lengths[c]`` valid bytes
+    each: the count bytes found by the decoder FSM (what
+    ops/rle.rle_classify computes), each expanded to its run, with the
+    per-chunk diff revert seeded by ``carries`` when ``use_diff``. Returns
+    (C, out_len) uint8, zero past each chunk's decoded length. CUDA needs
+    out_len % 16 == 0 and n < 2^23."""
     if streams.device.type == "cpu":
-        return rle_expand_plain(streams, is_cnt, lengths, carries, out_len,
-                                use_diff)
+        return rle_expand_plain(streams, lengths, carries, out_len, use_diff)
     dev = _check_cuda("rle_expand", (streams, torch.uint8, 2),
-                      (is_cnt, torch.bool, 2), (lengths, torch.int32, 1),
-                      (carries, torch.uint8, 1))
+                      (lengths, torch.int32, 1), (carries, torch.uint8, 1))
     C, n = streams.shape
-    if is_cnt.shape != streams.shape:
-        raise ValueError("rle_expand: is_cnt must match the streams' shape")
+    if out_len % 16 or n >= 1 << 23:
+        raise ValueError("rle_expand: out_len must divide by 16 and rows "
+                         "hold fewer than 2^23 bytes")
     out = torch.empty((C, out_len), dtype=torch.uint8, device=dev)
     if C:
         _launch("rle_expand", "rle_expand_launch",
-                (streams, is_cnt, lengths, carries, out),
+                (streams, lengths, carries, out),
                 (C, n, out_len, int(use_diff)), dev)
         rle_expand.launches += 1
     return out

@@ -13,6 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from huffman_codec_tpu_torch import CodecConfig, TorchCodec  # noqa: E402
+from huffman_codec_tpu_torch.edge_cases import (  # noqa: E402
+    lane_edge_rows, pack_lane_rows, rle_edge_rows)
 from huffman_codec_tpu_torch.ops import adapt as tad  # noqa: E402
 from huffman_codec_tpu_torch.ops import canonical as tcan  # noqa: E402
 from huffman_codec_tpu_torch.ops import kernels as K  # noqa: E402
@@ -66,10 +68,10 @@ def test_kernels_match_plain(cuda, use_diff):
     d = K.lane_decode(buf, lt8, ln, LANE, 31)
     assert torch.equal(d, K.lane_decode_plain(buf, lt8, ln, LANE, 31))
     assert torch.equal(d, s)
-    ic = trle.rle_classify(d, ln)
-    o = K.rle_expand(d, ic, ln, carries, CS, use_diff)
-    assert torch.equal(o, K.rle_expand_plain(d, ic, ln, carries, CS,
-                                             use_diff))
+    o = K.rle_expand(d, ln, carries, CS, use_diff)
+    assert torch.equal(o, K.rle_expand_plain(d, ln, carries, CS, use_diff))
+    valid = torch.arange(CS, device=cuda)[None, :] < lens[:, None]
+    assert torch.equal(torch.where(valid, o, 0), torch.where(valid, chunks, 0))
 
 
 @pytest.mark.cuda
@@ -229,3 +231,65 @@ def test_gpu_adaptive_container_equals_cpu_plain_path(cuda, layout, use_diff):
                                                                   True)
         assert gpu.decode(v3) == data
         assert K.launch_counts()["group_tile_lens"] == walks + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_len", [128, 4096, 12288])
+@pytest.mark.parametrize("use_diff", [False, True])
+def test_rle_expand_edge_streams(cuda, use_diff, out_len):
+    s, ln, car = (torch.from_numpy(a).to(cuda)
+                  for a in rle_edge_rows(8192, 41))
+    K.reset_launches()
+    got = K.rle_expand(s, ln, car, out_len, use_diff)
+    assert K.launch_counts()["rle_expand"] == 1
+    assert torch.equal(got, K.rle_expand_plain(s, ln, car, out_len,
+                                               use_diff))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,out_len", [
+    (4096, 21849, 16384), (4096, 89, 64), (40960, 89, 64),
+    (1, 349529, 262144), (10, 349529, 262144)])
+def test_rle_expand_tile_row_geometries(cuda, rows, n, out_len):
+    # the adaptive decodes' tile rows: run-heavy streams of a 3-letter
+    # alphabet, lengths anywhere up to the row
+    rng = np.random.default_rng(rows + n)
+    s = torch.from_numpy(rng.integers(0, 3, (rows, n), dtype=np.int64)
+                         .astype(np.uint8)).to(cuda)
+    ln = torch.from_numpy(rng.integers(0, n + 1, rows).astype(np.int32)
+                          ).to(cuda)
+    zero = torch.zeros(rows, dtype=torch.uint8, device=cuda)
+    got = K.rle_expand(s, ln, zero, out_len, False)
+    assert torch.equal(got, K.rle_expand_plain(s, ln, zero, out_len, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane,nl", [(512, 4), (2048, 3), (4096, 2)])
+@pytest.mark.parametrize("max_len", [31, 8])
+def test_lane_decode_edge_rows(cuda, lane, nl, max_len):
+    # a 26-bit-deep code decoded at the max_len 31 bucket, and at 8, where
+    # its long codes are no codes; partial and empty lanes
+    sy, ln, lt = (torch.from_numpy(a).to(cuda)
+                  for a in lane_edge_rows(lane, nl, 43))
+    buf = pack_lane_rows(sy, ln, lt, lane)
+    K.reset_launches()
+    d = K.lane_decode(buf, lt, ln, lane, max_len)
+    assert K.launch_counts()["lane_decode"] == 1
+    assert torch.equal(d, K.lane_decode_plain(buf, lt, ln, lane, max_len))
+    if max_len == 31:
+        valid = torch.arange(nl * lane, device=cuda)[None, :] < ln[:, None]
+        assert torch.equal(d, torch.where(valid, sy, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", [100, 36])
+def test_lane_decode_lanes_off_16(cuda, lane):
+    # lanes that do not divide by 16 and a stride that does not divide by
+    # 4, packed by the plain versions on the host
+    sy, ln, lt = (torch.from_numpy(a) for a in lane_edge_rows(lane, 5, 44))
+    buf = pack_lane_rows(sy, ln, lt, lane, wb_pad=3).to(cuda)
+    lt, ln = lt.to(cuda), ln.to(cuda)
+    d = K.lane_decode(buf, lt, ln, lane, 31)
+    assert torch.equal(d, K.lane_decode_plain(buf, lt, ln, lane, 31))
+    valid = torch.arange(5 * lane, device=cuda)[None, :] < ln[:, None]
+    assert torch.equal(d, torch.where(valid, sy.to(cuda), 0))

@@ -17,6 +17,8 @@ import jax.numpy as jnp  # noqa: E402
 from huffman_codec_tpu.ops import canonical as jcan  # noqa: E402
 from huffman_codec_tpu.ops import pallas_kernels as jpk  # noqa: E402
 from huffman_codec_tpu.ops.rle import rle_classify as jax_rle_classify  # noqa: E402
+from huffman_codec_tpu_torch.edge_cases import (  # noqa: E402
+    lane_edge_rows, pack_lane_rows, rle_edge_rows)
 from huffman_codec_tpu_torch.ops import canonical as tcan  # noqa: E402
 from huffman_codec_tpu_torch.ops import kernels as K  # noqa: E402
 from huffman_codec_tpu_torch.ops import rle as trle  # noqa: E402
@@ -246,7 +248,7 @@ def test_rle_classify_matches_jax(classified, use_diff):
 def test_rle_expand_matches_pallas(classified, enc, use_diff):
     s, ln, ic, _ = classified[use_diff]
     car = enc["carries"]
-    got = K.rle_expand(_t(s), _t(ic), _t(ln), _t(car), CS, use_diff).numpy()
+    got = K.rle_expand(_t(s), _t(ln), _t(car), CS, use_diff).numpy()
     want = np.asarray(jpk.rle_expand(
         jnp.asarray(s), jnp.asarray(ic), jnp.asarray(ln), jnp.asarray(car),
         CS, use_diff, interpret=True))
@@ -255,6 +257,72 @@ def test_rle_expand_matches_pallas(classified, enc, use_diff):
     for i in range(len(lens)):  # and it inverts the encode
         np.testing.assert_array_equal(got[i, :lens[i]],
                                       enc["chunks"][i, :lens[i]])
+
+
+@pytest.fixture(scope="module")
+def rle_edge():
+    """Run-heavy streams (count bytes at the decode kernel's segment and
+    tile borders, count byte 255 restarts, rows of length 0, 1, 2) and
+    their JAX classification."""
+    s, ln, car = rle_edge_rows(CAP, 41)
+    ic = jax.vmap(lambda a, b: jax_rle_classify(a, b))(jnp.asarray(s),
+                                                      jnp.asarray(ln))
+    return s, ln, car, np.asarray(ic)
+
+
+@pytest.mark.parametrize("out_len", [CS, 3 * CS])
+@pytest.mark.parametrize("use_diff", [False, True])
+def test_rle_expand_edge_streams_match_pallas(rle_edge, use_diff, out_len):
+    s, ln, car, ic = rle_edge
+    got = K.rle_expand(_t(s), _t(ln), _t(car), out_len, use_diff).numpy()
+    want = np.asarray(jpk.rle_expand(
+        jnp.asarray(s), jnp.asarray(ic), jnp.asarray(ln), jnp.asarray(car),
+        out_len, use_diff, interpret=True))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def rle_edge_serial(rle_edge):
+    """The edge streams through the serial reference decoder (the exact
+    model of the format, huffman_codec_tpu/pyref/rle.py), whole."""
+    from huffman_codec_tpu.pyref.rle import rle_decode as serial_decode
+
+    s, ln, _, _ = rle_edge
+    return [np.frombuffer(bytes(serial_decode(s[i, :ln[i]].tobytes())[0]),
+                          np.uint8) for i in range(len(ln))]
+
+
+@pytest.mark.parametrize("out_len", [128, 256, CS])
+@pytest.mark.parametrize("use_diff", [False, True])
+def test_rle_expand_edge_streams_match_serial_decoder(rle_edge,
+                                                      rle_edge_serial,
+                                                      use_diff, out_len):
+    # out_len 128 cuts every long row short; there the Pallas kernel is
+    # outside its contract (its routing takes the decoded length to fit
+    # out_len) and differs, so the serial decoder is the witness
+    s, ln, car, _ = rle_edge
+    got = K.rle_expand(_t(s), _t(ln), _t(car), out_len, use_diff).numpy()
+    want = np.zeros_like(got)
+    for i, d in enumerate(rle_edge_serial):
+        d = d[:out_len].astype(np.int64)
+        if use_diff:
+            d = (np.cumsum(d) + int(car[i])) & 255
+        want[i, :len(d)] = d
+    np.testing.assert_array_equal(got, want)
+
+
+def test_lane_decode_edge_rows_match_pallas():
+    # a code of 26-bit depth (the max_len 31 bucket), a partial last
+    # lane, empty lanes, an empty chunk and a one-symbol table
+    sy, ln, lt = lane_edge_rows(LANE, 4, 43)
+    buf = pack_lane_rows(_t(sy), _t(ln), _t(lt), LANE).numpy()
+    got = K.lane_decode(_t(buf), _t(lt), _t(ln), LANE, 31).numpy()
+    want = np.asarray(jpk.lane_decode(
+        jnp.asarray(buf.view(np.uint32)), jnp.asarray(lt), jnp.asarray(ln),
+        lane=LANE, max_len=31, interpret=True))
+    np.testing.assert_array_equal(got, want)
+    valid = np.arange(4 * LANE)[None, :] < ln[:, None]
+    np.testing.assert_array_equal(got, np.where(valid, sy, 0))
 
 
 def test_rle_decode_inverts_encode(enc):
