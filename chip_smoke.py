@@ -7,7 +7,10 @@ runtime of the v1 format, and drives three paths.
 
 The sharded streaming path: holds the six kernels it runs against their
 plain PyTorch versions on the card (one full step of 256 x 64 KiB chunks,
-diff on and off, and a batch of edge-case chunks), round-trips a 64 MiB
+diff on and off, a batch of edge-case chunks, and the encode and decode
+edge batches of ``huffman_codec_tpu_torch/edge_cases.py``), launches the
+encode kernels 200 times on two small batches and fails on any result
+that differs from the plain version's (the stress phase), round-trips a 64 MiB
 generated input through ``TorchCodec.encode``/``decode`` with the diff
 model on and off, checks a container against the plain path run on the
 CPU, and times the device encode and decode and every kernel with CUDA
@@ -36,6 +39,8 @@ containers against the plain path run on the CPU, and times the search,
 the stages of the encode and the decode, and the peak device memory.
 
 Each path's kernel launches are counted from zero over its round trips.
+The encode kernels (1, 1b and 3) are also timed at every geometry they
+serve, each time beside its bound (``by_geometry`` in their rows).
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
 result, when there is no GPU or any phase fails.
@@ -63,6 +68,10 @@ STEP = 256  # chunks per step on the main path
 CS = 1 << 16
 LANE = 512
 SEED = 1234
+STRESS_REPS = 200
+# queued device time and bound of the encode kernels (1, 1b, 3) at each
+# geometry they serve, filled by the phases that time them
+GEOMETRY_MS: dict = {}
 
 
 def log(*a):
@@ -97,6 +106,16 @@ def bound_of(nbytes: int, ops: int):
     rate."""
     by, op = nbytes / HBM_BYTES_PER_S * 1e3, ops / int32_ops_per_s() * 1e3
     return (by, "bytes") if by >= op else (op, "operations")
+
+
+def rle_encode_ops(n_in: int, n_out: int, diff: bool, tile: bool) -> int:
+    """Integer operations kernel 1's function needs, counted as a serial
+    encoder does them: an input byte costs the diff's subtract (diff on),
+    the compare with the byte before, the run counter's update and its
+    compares with 3 and 258, and in tile mode the position's compares with
+    the tile's first and last byte; an output byte costs the select of
+    literal or count byte and the advance of the output address."""
+    return (4 + int(diff) + 2 * int(tile)) * n_in + 2 * n_out
 
 
 def cuda_ms(fn, reps: int = 10, warm: int = 2,
@@ -240,6 +259,99 @@ def edge_batch(dev):
     carries = torch.tensor([0, 1, 255, 65, 3, 9, 0, 77], dtype=torch.uint8,
                            device=dev)
     return chunks, in_lens, carries
+
+
+def geometry(kernel: str, where: str, ms: float, nbytes: int, ops: int,
+             **extra) -> None:
+    """Record and print one encode kernel's time at one geometry beside
+    its bound."""
+    bound, by = bound_of(nbytes, ops)
+    GEOMETRY_MS.setdefault(kernel, {})[where] = dict(
+        ms=ms, bound_ms=bound, bound_by=by, **extra)
+    log(f"{kernel} at {where}: {ms:.4f} ms, bound {bound:.5f} ms by {by} "
+        f"({nbytes} B), {ms / bound:.1f}x"
+        + "".join(f", {k} {v:.5f}" if isinstance(v, float) else f", {k} {v}"
+                  for k, v in extra.items()))
+
+
+def encode_edges(K, dev, errs):
+    """Kernels 1, 1b and 3 against their plain versions on the encode edge
+    batches of ``huffman_codec_tpu_torch/edge_cases.py``: rows of the
+    sharded step's width with lengths at and around the kernel's 16-byte
+    and 4096-byte borders, runs of 257-5000 bytes across those borders,
+    runs ending at the last two positions, carries 0, 255 and the first
+    byte (diff off and on, and the tile mode at T = 64, 1024 and 16384);
+    lanes of 512, 2048 and 32768 symbols with codes of depth 26 and 31,
+    empty, one-symbol and partial lanes."""
+    from huffman_codec_tpu_torch.edge_cases import (
+        pack_edge_rows, rle_encode_edge_rows)
+    from huffman_codec_tpu_torch.models.chunked import _sharded_cap
+
+    cap = _sharded_cap(CS, "canonical", LANE)
+    ch, ln, car = (torch.from_numpy(a).to(dev)
+                   for a in rle_encode_edge_rows(CS, SEED + 31))
+    zero = torch.zeros_like(car)
+    for d, tile in ((False, 0), (True, 0), (False, 64), (False, 1024),
+                    (False, 16384)):
+        c = zero if tile else car
+        s, ln_s = K.rle_diff_encode(ch, ln, c, d, cap, tile=tile)
+        torch.cuda.synchronize()
+        ps, pln = K.rle_diff_encode_plain(ch, ln, c, d, cap, tile)
+        name = K.TILE_MODE if tile else "rle_diff_encode"
+        same(name, s, ps, errs)
+        same(name + ".lens", ln_s, pln, errs)
+    for lane, nl in ((512, 8), (2048, 3), (32768, 2)):
+        sy, ln_p, tab, _ = (torch.from_numpy(a).to(dev)
+                            for a in pack_edge_rows(lane, nl, SEED + lane))
+        w, b = K.lane_pack(sy, ln_p, tab, lane)
+        torch.cuda.synchronize()
+        pw, pb = K.lane_pack_plain(sy, ln_p, tab, lane)
+        same("lane_pack", w, pw, errs)
+        same("lane_pack.bits", b, pb, errs)
+    log(f"encode edges: rle_diff_encode on {tuple(ch.shape)} edge rows, diff "
+        "off and on and the tile mode at T = 64, 1024, 16384; lane_pack at "
+        "lane 512 x 8, 2048 x 3, 32768 x 2 with codes of depth 26 and 31: "
+        "equal to their plain versions")
+
+
+def stress(K, dev) -> None:
+    """Kernel 1 (tile 0 with diff off and on, and the tile mode) and
+    ``lane_pack`` launched STRESS_REPS times each on the small batch the GPU
+    tests start from and on an encode edge batch, every result compared
+    with the plain version's. Any mismatch fails the run."""
+    from huffman_codec_tpu_torch.edge_cases import (
+        match_plain_rows, rle_encode_edge_rows)
+    from huffman_codec_tpu_torch.ops.canonical import (
+        assign_codes, build_lengths_pm)
+
+    bad = {}
+    for bname, arrays, cap in (
+            ("small", match_plain_rows(), 8192),
+            ("edge", rle_encode_edge_rows(16384, SEED + 32), 22016)):
+        ch, ln, car = (torch.from_numpy(a).to(dev) for a in arrays)
+        zero = torch.zeros_like(car)
+        cases = {"tile 0": (False, 0, car), "tile 0 diff": (True, 0, car),
+                 "tile 64": (False, 64, zero)}
+        want = {k: K.rle_diff_encode_plain(ch, ln, c, d, cap, t)
+                for k, (d, t, c) in cases.items()}
+        st, rl = want["tile 0 diff"]
+        lens = build_lengths_pm(K.histogram256_plain(st, rl))
+        tables = (assign_codes(lens) | (lens << 26)).to(torch.int32)
+        want["lane_pack"] = K.lane_pack_plain(st, rl, tables, LANE)
+        for k in want:
+            bad[f"{bname} {k}"] = 0
+        for _ in range(STRESS_REPS):
+            got = {k: K.rle_diff_encode(ch, ln, c, d, cap, tile=t)
+                   for k, (d, t, c) in cases.items()}
+            got["lane_pack"] = K.lane_pack(st, rl, tables, LANE)
+            for k, pair in got.items():
+                if not all(torch.equal(g, w) for g, w in zip(pair, want[k])):
+                    bad[f"{bname} {k}"] += 1
+    n_bad = sum(bad.values())
+    log(f"stress: {STRESS_REPS} launches a case, each held against the plain "
+        f"version: {n_bad} mismatches {bad}")
+    if n_bad:
+        raise AssertionError(f"stress: {n_bad} mismatches {bad}")
 
 
 GLOBAL_SIZES = (1 << 18, 5 << 18, 10 << 18, 64 << 20)  # 1, 5, 10 tiles; bulk
@@ -543,9 +655,13 @@ def global_path(K, TorchCodec, CodecConfig, x, errs):
             ("repad_words", lambda: K.repad_words(g["flat"], g["lw"], g["wb"]),
              4 * int(g["lw"].sum()) + 4 * g["lw"].numel()
              + 4 * g["lw"].numel() * g["wb"])):
+        ms = cuda_ms(fn, reps=10, queued=True)
+        if name == "lane_pack":
+            geometry(name, f"lane {g['lane']}, the 2.5 MiB whole-file chunk "
+                     f"(1 x {L})", ms, nbytes, 6 * int(g["lens"].sum()))
+            continue
         log(f"{name} at the 2.5 MiB whole-file chunk (1 x {L}, lane "
-            f"{g['lane']}): {cuda_ms(fn, reps=10, queued=True):.4f} ms, "
-            f"bound "
+            f"{g['lane']}): {ms:.4f} ms, bound "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} B)")
     stage_split(K, g)
     del whole, g
@@ -723,6 +839,15 @@ def sharded_adapt_chain(K, A, codec, xd, bs, cap, errs):
                              queued=True),
         f"rle_expand {shape}": t_exp,
     }
+    sum_rl, nl = int(rl.sum()), cap // LANE
+    read = nb * cs + 5 * nb + 4 * nb
+    geometry(K.TILE_MODE, f"all {nb} bands, T = {bs * bs}",
+             times[K.TILE_MODE], read + sum_rl,
+             rle_encode_ops(nb * cs, sum_rl, False, True),
+             bound_padded_ms=(read + nb * cap) / HBM_BYTES_PER_S * 1e3)
+    geometry("lane_pack", f"lane 512, all {nb} bands", times["lane_pack"],
+             sum_rl + 1028 * nb + 4 * nb * nl * (K.lane_words_cap(LANE) + 1),
+             6 * sum_rl)
     return nb, times
 
 
@@ -970,7 +1095,8 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
     # the function needs, so the padding is shown apart)
     nbytes = STEP * CS + 5 * STEP + sum_out + 4 * STEP
     padded_bytes = nbytes - sum_out + STEP * cap
-    bound, by = bound_of(nbytes, 12 * STEP * CS)
+    n_ops = rle_encode_ops(STEP * CS, sum_out, False, True)
+    bound, by = bound_of(nbytes, n_ops)
     per_t = {}
     for b in wins:
         w_b = wins[b][0]
@@ -978,6 +1104,8 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
             w_b, full, zero, False, cap, tile=b * b), reps=20, warm=3,
             queued=True)
     ms = per_t[bs * bs]
+    geometry(K.TILE_MODE, f"256 bands, T = {bs * bs}", ms, nbytes, n_ops,
+             bound_padded_ms=padded_bytes / HBM_BYTES_PER_S * 1e3)
     plain_ms = cuda_ms(lambda: K.rle_diff_encode_plain(
         win, full, zero, False, cap, bs * bs), reps=2, warm=1)
     log(f"{K.TILE_MODE} 256 bands, T = {bs * bs}: {ms:.4f} ms, plain "
@@ -1169,7 +1297,10 @@ def main() -> int:
         lg = _build.BUILD_DIR / f"{name}.log"
         if lg.exists():
             for line in lg.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "Compiling entry" in line:
+                    line = line.split("'")[1] if "'" in line else line
+                if ("registers" in line or "spill" in line
+                        or line.startswith("_Z")):
                     log(f"  {name}: {line.strip()}")
 
     # -- kernels against their plain versions ------------------------------
@@ -1188,6 +1319,8 @@ def main() -> int:
     for use_diff in (False, True):
         kernel_chain(K, ec, el, ecar, use_diff, errs, {})
     decode_edges(K, dev, errs)
+    encode_edges(K, dev, errs)
+    stress(K, dev)
     log("kernels vs plain: all equal; max abs err", max(errs.values()))
 
     # -- the main path: 64 MiB round trips, launches counted ----------------
@@ -1272,7 +1405,7 @@ def main() -> int:
         return out.masked_scatter_(mk, s["flat"])
 
     # integer operations each kernel needs on this step's data, counted
-    # per element: a handful of compares, shifts and adds a byte
+    # per element as a serial version of the function does them
     specs = [
         ("rle_diff_encode", "rle_encode.cu", 944,
          lambda: K.rle_diff_encode(s["chunks"], s["in_lens"], s["carries"],
@@ -1281,7 +1414,8 @@ def main() -> int:
                                          s["carries"], True, s["cap"]),
          # written: each chunk's stream and its length (the zero padding
          # of the rows to ``cap`` is the kernel's choice, not counted)
-         None, sum_in + 5 * C + sum_rl + 4 * C, 10 * sum_in),
+         None, sum_in + 5 * C + sum_rl + 4 * C,
+         rle_encode_ops(sum_in, sum_rl, True, False)),
         ("histogram256", "histogram.cu", 1163,
          lambda: K.histogram256(s["st"], s["rl"]),
          lambda: K.histogram256_plain(s["st"], s["rl"]),
@@ -1337,6 +1471,12 @@ def main() -> int:
             f"{bound:.4f} ms by {bound_by} ({nbytes} B)  library "
             f"{lms if lms is None else round(lms, 4)}  launches "
             f"{launches[name]}")
+        if name == "rle_diff_encode":  # the zero tail counted as written too
+            geometry(name, "the sharded step (diff on)", ms, nbytes, n_ops,
+                     bound_padded_ms=(nbytes - sum_rl + C * s["cap"])
+                     / HBM_BYTES_PER_S * 1e3)
+        elif name == "lane_pack":
+            geometry(name, "lane 512, the sharded step", ms, nbytes, n_ops)
     buf_s = K.lane_pack(s["st"], s["rl"], s["tables"], LANE)[0]
     ops = {
         "rle_classify": lambda: rle_classify(s["dec"], s["rl"]),
@@ -1357,6 +1497,14 @@ def main() -> int:
                              wb_l).view(C, -1, wb_l)
         dec_l = K.lane_decode(pb_l, s["lt"], s["rl"], lane, s["max_len"])
         same("lane_decode.vs_streams", dec_l, s["st"], errs)
+        if lane == 2048:
+            nl_l = s["cap"] // lane
+            geometry("lane_pack", "lane 2048, the sharded step's streams",
+                     cuda_ms(lambda: K.lane_pack(s["st"], s["rl"],
+                                                 s["tables"], 2048),
+                             reps=20, warm=3, queued=True),
+                     sum_rl + 1028 * C + 4 * C * nl_l
+                     * (K.lane_words_cap(lane) + 1), 6 * sum_rl)
         by_lane[lane] = cuda_ms(lambda: K.lane_decode(
             pb_l, s["lt"], s["rl"], lane, s["max_len"]), reps=20, warm=3,
             queued=True)
@@ -1391,6 +1539,8 @@ def main() -> int:
     for row in rows:  # the later phases' comparisons count as well
         row["max_abs_err"] = max(v for k, v in errs.items()
                                  if k.split(".")[0] == row["name"])
+        if row["name"] in GEOMETRY_MS:
+            row["by_geometry"] = GEOMETRY_MS[row["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)

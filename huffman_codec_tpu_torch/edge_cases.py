@@ -1,4 +1,5 @@
-"""Edge-case inputs for the decode kernels, made with numpy from a seed.
+"""Edge-case inputs for the encode and decode kernels, made with numpy
+from a seed.
 
 The CPU tests (against the JAX package), the GPU tests and
 ``chip_smoke.py`` (kernel against plain version) all draw their edge
@@ -16,6 +17,22 @@ from huffman_codec_tpu_torch.ops import kernels as K
 from huffman_codec_tpu_torch.ops.canonical import assign_codes
 
 N_SYM = 256
+
+
+def match_plain_rows():
+    """The small batch every kernel of the main path is first held to:
+    (chunks (6, 4096) uint8, lengths (6,) int32, carries (6,) uint8) of
+    random bytes, a gradient, runs of 259 and 516 and the rest of the row,
+    one symbol, two symbols over a partial length, and an empty row."""
+    n = 4096
+    rng = np.random.default_rng(8)
+    i = np.arange(n)
+    rows = [rng.integers(0, 256, n), ((i // 64) * 3 + i % 64) & 255,
+            np.r_[np.full(259, 7), np.full(516, 9), np.full(n - 775, 1)],
+            np.full(n, 65), rng.integers(0, 2, n), np.zeros(n)]
+    return (np.stack(rows).astype(np.uint8),
+            np.array([n, n, n, n, 1000, 0], np.int32),
+            np.array([0, 1, 255, 65, 3, 0], np.uint8))
 
 
 def _count_at(row: np.ndarray, at: int, value: int) -> None:
@@ -130,3 +147,112 @@ def pack_lane_rows(sy: torch.Tensor, ln: torch.Tensor, lt: torch.Tensor,
         wb = int(lw.max()) + wb_pad
     flat = _strip_payload(buf, lw).contiguous()
     return K.repad_words(flat, lw, wb).view(len(ln), -1, wb)
+
+
+def rle_encode_edge_rows(n: int, seed: int):
+    """Rows for the RLE encoder (kernel 1 and its tile mode) of width
+    ``n`` (n >= 16384, a multiple of 4096, so that rows cross several of
+    the kernel's 8192-byte tiles and their 16-byte groups): (chunks (R, n)
+    uint8, lengths (R,) int32, carries (R,) uint8).
+
+    * lengths 0, 1, 2, 3, 15, 16, 17, 4094, 4095, 4096, 4097, 8191, 8192,
+      8193 and n on a four-letter alphabet (short runs everywhere);
+    * runs of 257, 258, 259, 516 and 5000 equal bytes straddling
+      4096-byte borders, on noise;
+    * one byte over the whole row, and a ramp (a run of one value once
+      diffed);
+    * a run ending at ``length - 2`` and one ending at ``length - 1``;
+    * carries 0, 255 and equal to the row's first byte among random
+      ones."""
+    if n < 16384 or n % 4096:
+        raise ValueError("rle_encode_edge_rows needs n >= 16384, a multiple "
+                         "of 4096")
+    rng = np.random.default_rng(seed)
+    rows, lens = [], []
+    for m in (0, 1, 2, 3, 15, 16, 17, 4094, 4095, 4096, 4097, 8191, 8192,
+              8193, n):
+        rows.append(rng.integers(0, 4, n, dtype=np.int64).astype(np.uint8))
+        lens.append(m)
+    for run, border in ((257, 4096), (258, 8192), (259, 12288), (516, 4096),
+                        (5000, 8192)):
+        for shift in (run // 2, 1):  # across the border; ending just past it
+            r = rng.integers(0, N_SYM, n, dtype=np.int64).astype(np.uint8)
+            r[border - run + shift: border + shift] = 17
+            rows.append(r)
+            lens.append(n)
+    rows.append(np.full(n, 5, np.uint8))
+    lens.append(n)
+    rows.append((np.arange(n) * 3 % N_SYM).astype(np.uint8))
+    lens.append(n)
+    for end in (2, 1):  # the run's last byte at length - end
+        m = n - 1000
+        r = rng.integers(0, N_SYM, n, dtype=np.int64).astype(np.uint8)
+        r[m - end - 299: m - end + 1] = 9
+        rows.append(r)
+        lens.append(m)
+    carries = rng.integers(0, N_SYM, len(rows), dtype=np.int64)
+    carries[:3] = (0, 255, rows[2][0])
+    carries[-4:-2] = (rows[-4][0], 255)
+    return (np.stack(rows), np.array(lens, np.int32),
+            carries.astype(np.uint8))
+
+
+def pack_edge_rows(lane: int, nl: int, seed: int):
+    """Symbol rows for the lane pack (kernel 3), ``nl`` lanes of ``lane``
+    symbols: (symbols (R, nl * lane) uint8, lengths (R,) int32, tables
+    (R, 256) int32 holding ``code | len << 26`` as the codec builds them,
+    and the code lengths (R, 256) uint8 they were built from).
+
+    * a code of depth 26 (lengths 1, 2, ..., 26, 26) at its symbols'
+      probabilities with the six deepest symbols forced in, full and with a
+      partial last lane whose length does not divide by 16;
+    * the same for a code of depth 31, whose codes of 27-31 bits overlap
+      the length field (both packages read ``code = entry & (2^26 - 1)``
+      and ``len = entry >> 26``, and the port keeps that), and a row of
+      its two deepest symbols only (31 bits a symbol, the most a lane can
+      hold);
+    * a flat 8-bit code with a length ending mid-lane and half the lanes
+      empty; an empty row; one symbol of a one-symbol table, and a full
+      row of it; one symbol in the last lane."""
+    rng = np.random.default_rng(seed)
+    L = nl * lane
+    rows, lens, tables = [], [], []
+
+    def deep_code(depth):
+        t = np.zeros(N_SYM, np.uint8)
+        syms = rng.permutation(N_SYM)[:depth + 1]
+        t[syms] = np.r_[np.arange(1, depth + 1), depth]
+        p = 2.0 ** -t[syms].astype(np.float64)
+        return t, syms, p / p.sum()
+
+    for depth in (26, 31):
+        t, syms, p = deep_code(depth)
+        for m in (L, L - lane + lane // 3 + 5):
+            r = rng.choice(syms, size=L, p=p).astype(np.uint8)
+            for s in syms[-6:]:  # the six deepest codes, 21-26 or 27-31 bits
+                r[rng.integers(0, m, 8)] = s
+            rows.append(r)
+            lens.append(m)
+            tables.append(t)
+    rows.append(rng.choice(syms[-2:], size=L).astype(np.uint8))
+    lens.append(L)
+    tables.append(t)
+    flat = np.full(N_SYM, 8, np.uint8)
+    rows.append(rng.integers(0, N_SYM, L, dtype=np.int64).astype(np.uint8))
+    lens.append(L // 2 - 3)
+    tables.append(flat)
+    rows.append(np.zeros(L, np.uint8))
+    lens.append(0)
+    tables.append(flat)
+    one = np.zeros(N_SYM, np.uint8)
+    one[65] = 1
+    for m in (1, L):
+        rows.append(np.full(L, 65, np.uint8))
+        lens.append(m)
+        tables.append(one)
+    rows.append(rng.integers(0, N_SYM, L, dtype=np.int64).astype(np.uint8))
+    lens.append(L - lane + 1)
+    tables.append(flat)
+    lt = torch.from_numpy(np.stack(tables)).to(torch.int64)
+    packed = (assign_codes(lt) | (lt << 26)).to(torch.int32).numpy()
+    return np.stack(rows), np.array(lens, np.int32), packed, np.stack(tables)

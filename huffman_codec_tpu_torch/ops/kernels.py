@@ -79,6 +79,11 @@ def _launch(src: str, symbol: str, ptrs, ints, dev):
 # ---------------------------------------------------------------------------
 
 
+# bytes a block of csrc/rle_encode.cu takes (its kTile); the launcher
+# refuses a scratch buffer sized from a smaller value
+RLE_TILE = 8192
+
+
 def _check_tile(n: int, tile: int, use_diff: bool) -> None:
     if tile & (tile - 1) or n % tile:
         raise ValueError("tile must be a power of two dividing n")
@@ -110,7 +115,7 @@ def rle_diff_encode(chunks: torch.Tensor, lengths: torch.Tensor,
 
     chunks (C, n) uint8, lengths (C,) int32 valid bytes, carries (C,)
     uint8. Returns (streams (C, cap) uint8, zero past each end; encoded
-    lengths (C,) int32). CUDA needs n % 16 == 0.
+    lengths (C,) int32). CUDA needs n % 16 == 0 and n, cap < 2^30.
 
     ``tile`` > 0 (a power of two dividing n, without diff) is the tile
     mode: each row is n / tile tiles, every tile encoded as a stream of
@@ -127,14 +132,19 @@ def rle_diff_encode(chunks: torch.Tensor, lengths: torch.Tensor,
     dev = _check_cuda("rle_diff_encode", (chunks, torch.uint8, 2),
                       (lengths, torch.int32, 1), (carries, torch.uint8, 1))
     C, n = chunks.shape
-    if n % 16:
-        raise ValueError("rle_diff_encode: chunk length must divide by 16")
+    if n % 16 or n >= 1 << 30 or cap >= 1 << 30:
+        raise ValueError("rle_diff_encode: chunk length must divide by 16; "
+                         "rows and streams hold fewer than 2^30 bytes")
     streams = torch.empty((C, cap), dtype=torch.uint8, device=dev)
     out_lens = torch.empty((C,), dtype=torch.int32, device=dev)
     if C:
+        # the look-back's status word a tile of the kernel and its tile
+        # counter, zeroed by the launch on the same stream
+        scratch = torch.empty(C * max(1, -(-n // RLE_TILE)) + 1,
+                              dtype=torch.int64, device=dev)
         _launch("rle_encode", "rle_encode_launch",
-                (chunks, lengths, carries, streams, out_lens),
-                (C, n, cap, int(use_diff), tile), dev)
+                (chunks, lengths, carries, streams, out_lens, scratch),
+                (scratch.numel(), C, n, cap, int(use_diff), tile), dev)
         if tile:
             rle_diff_encode.tile_launches += 1
         else:
@@ -234,7 +244,7 @@ def lane_pack(data: torch.Tensor, lengths: torch.Tensor,
     nl, W = L // lane, lane_words_cap(lane)
     words = torch.empty((C, nl, W), dtype=torch.int32, device=dev)
     bits = torch.empty((C, nl), dtype=torch.int32, device=dev)
-    if C:
+    if C and nl:
         _launch("lane_pack", "lane_pack_launch",
                 (data, lengths, tables, words, bits), (C, L, lane, W), dev)
         lane_pack.launches += 1

@@ -14,7 +14,8 @@ torch = pytest.importorskip("torch")
 
 from huffman_codec_tpu_torch import CodecConfig, TorchCodec  # noqa: E402
 from huffman_codec_tpu_torch.edge_cases import (  # noqa: E402
-    lane_edge_rows, pack_lane_rows, rle_edge_rows)
+    lane_edge_rows, match_plain_rows, pack_edge_rows, pack_lane_rows,
+    rle_edge_rows, rle_encode_edge_rows)
 from huffman_codec_tpu_torch.ops import adapt as tad  # noqa: E402
 from huffman_codec_tpu_torch.ops import canonical as tcan  # noqa: E402
 from huffman_codec_tpu_torch.ops import kernels as K  # noqa: E402
@@ -32,15 +33,7 @@ def cuda():
 
 
 def _rows(dev):
-    rng = np.random.default_rng(8)
-    i = np.arange(CS)
-    rows = [rng.integers(0, 256, CS), ((i // 64) * 3 + i % 64) & 255,
-            np.r_[np.full(259, 7), np.full(516, 9), np.full(CS - 775, 1)],
-            np.full(CS, 65), rng.integers(0, 2, CS), np.zeros(CS)]
-    lens = [CS, CS, CS, CS, 1000, 0]
-    return (torch.from_numpy(np.stack(rows).astype(np.uint8)).to(dev),
-            torch.tensor(lens, dtype=torch.int32, device=dev),
-            torch.tensor([0, 1, 255, 65, 3, 0], dtype=torch.uint8, device=dev))
+    return tuple(torch.from_numpy(a).to(dev) for a in match_plain_rows())
 
 
 @pytest.mark.cuda
@@ -293,3 +286,63 @@ def test_lane_decode_lanes_off_16(cuda, lane):
     assert torch.equal(d, K.lane_decode_plain(buf, lt, ln, lane, 31))
     valid = torch.arange(5 * lane, device=cuda)[None, :] < ln[:, None]
     assert torch.equal(d, torch.where(valid, sy.to(cuda), 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_diff,tile", [(False, 0), (True, 0), (False, 64),
+                                           (False, 4096), (False, 16384)])
+def test_rle_encode_edge_rows(cuda, use_diff, tile):
+    # lengths at and around the kernel's 16-byte and 4096-byte borders,
+    # runs of 257-5000 bytes across tile borders, runs ending at the last
+    # two positions, carries 0, 255 and equal to the first byte
+    ch, ln, car = (torch.from_numpy(a).to(cuda)
+                   for a in rle_encode_edge_rows(16384, 61))
+    if tile:
+        car = torch.zeros_like(car)
+    cap = 16384 + 16384 // 3 + 4 + 9  # rows not 16-byte aligned
+    K.reset_launches()
+    s, l = K.rle_diff_encode(ch, ln, car, use_diff, cap, tile=tile)
+    counts = K.launch_counts()
+    assert counts[K.TILE_MODE if tile else "rle_diff_encode"] == 1
+    ps, pl = K.rle_diff_encode_plain(ch, ln, car, use_diff, cap, tile)
+    assert torch.equal(l, pl) and torch.equal(s, ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane,nl", [(512, 8), (2048, 3), (32768, 2),
+                                     (4224, 2), (48, 7)])
+def test_lane_pack_edge_rows(cuda, lane, nl):
+    # codes of depth 26 and 31 (the shared 26-bit field), empty, one-symbol
+    # and partial lanes; the narrow shape (a team of threads a lane) and
+    # the fat one (a block a lane, pieces of 4096 symbols)
+    sy, ln, tables, _ = (torch.from_numpy(a).to(cuda)
+                         for a in pack_edge_rows(lane, nl, 62))
+    K.reset_launches()
+    w, b = K.lane_pack(sy, ln, tables, lane)
+    assert K.launch_counts()["lane_pack"] == 1
+    pw, pb = K.lane_pack_plain(sy, ln, tables, lane)
+    assert torch.equal(b, pb) and torch.equal(w, pw)
+
+
+@pytest.mark.cuda
+def test_rle_encode_launcher_refuses_short_scratch(cuda):
+    # the scratch holds a status word a kernel tile and the tile counter;
+    # one word short, the launcher returns an error and launches nothing
+    from huffman_codec_tpu_torch.ops import _build
+    C, n, cap = 3, 3 * K.RLE_TILE, 3 * K.RLE_TILE * 2
+    ch = torch.zeros((C, n), dtype=torch.uint8, device=cuda)
+    ln = torch.full((C,), n, dtype=torch.int32, device=cuda)
+    car = torch.zeros(C, dtype=torch.uint8, device=cuda)
+    st = torch.full((C, cap), 7, dtype=torch.uint8, device=cuda)
+    ol = torch.full((C,), -1, dtype=torch.int32, device=cuda)
+    fn = _build.bind("rle_encode", "rle_encode_launch", 6, 6)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    words = C * (n // K.RLE_TILE) + 1
+    for size, ok in ((words - 1, False), (words, True)):
+        scratch = torch.empty(size, dtype=torch.int64, device=cuda)
+        err = fn(ch.data_ptr(), ln.data_ptr(), car.data_ptr(), st.data_ptr(),
+                 ol.data_ptr(), scratch.data_ptr(), size, C, n, cap, 0, 0,
+                 stream)
+        torch.cuda.synchronize()
+        assert (err == 0) == ok
+        assert bool((ol == -1).all()) != ok
