@@ -16,14 +16,27 @@ model on and off, checks a container against the plain path run on the
 CPU, and times the device encode and decode and every kernel with CUDA
 events.
 
+Shapes that do not divide by 16 (``ODD_CONFIGS`` of
+``huffman_codec_tpu_torch/edge_cases.py``: chunks of 1000 bytes, lanes of
+100 and 8 symbols, in both layouts): every wrapper launches its kernel
+there (no wrapper sends a CUDA tensor to a plain version). The phase holds
+the six kernels of the sharded chain against their plain versions at those
+shapes and ``rle_expand`` on a row past 2^23 bytes, round-trips each
+config with the diff model on and off, checks every container against the
+plain path run on the CPU and prints its counted launches.
+
 The global layout (``CodecConfig()``, the default): holds the kernels it
 runs against their plain versions at its geometries (the whole-file
 candidate's fat lanes at 256 KiB, 1.25 MiB and 2.5 MiB of input, where
 the fat-lane decode kernel runs; the chunked candidate's lane 2048; a
-batch of edge cases), round-trips 256 KiB, 1.25 MiB, 2.5 MiB and 64 MiB
-with the diff model on and off, runs the v1 race on a small input, checks
-containers against the plain path run on the CPU, and times the fat-lane
-kernel, the device encode and decode and the peak device memory.
+batch of edge cases, and at lane 32768 random bytes, a fixed 7-bit code,
+windows with no code, codes of 20-31 bits and a chain past the lane's last
+word), round-trips 256 KiB, 1.25 MiB, 2.5 MiB and 64 MiB with the diff
+model on and off, runs the v1 race on a small input, checks containers
+against the plain path run on the CPU, and times the fat-lane kernel (also
+on 112 lanes of random bytes and of its worst case, a fixed 7-bit code
+whose chains never resynchronise), the device encode and decode and the
+peak device memory.
 
 Adaptive block RLE (``use_adapt``), in both layouts: holds the RLE
 kernel's tile mode against its plain version (a 256-band step of 128 x 512
@@ -39,8 +52,10 @@ containers against the plain path run on the CPU, and times the search,
 the stages of the encode and the decode, and the peak device memory.
 
 Each path's kernel launches are counted from zero over its round trips.
-The encode kernels (1, 1b and 3) are also timed at every geometry they
-serve, each time beside its bound (``by_geometry`` in their rows).
+The encode kernels (1, 1b and 3), ``repad_words`` (beside its library
+call, one ``masked_scatter_``) and the fat-lane decode kernel are also
+timed at every geometry they serve, each time beside its bound
+(``by_geometry`` in their rows).
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
 result, when there is no GPU or any phase fails.
@@ -69,8 +84,8 @@ CS = 1 << 16
 LANE = 512
 SEED = 1234
 STRESS_REPS = 200
-# queued device time and bound of the encode kernels (1, 1b, 3) at each
-# geometry they serve, filled by the phases that time them
+# queued device time and bound of a kernel at each geometry it serves
+# (kernels 1, 1b, 3, 4 and 7), filled by the phases that time them
 GEOMETRY_MS: dict = {}
 
 
@@ -182,7 +197,8 @@ def same(name: str, got: torch.Tensor, want: torch.Tensor, errs: dict):
                              f"version (max abs err {err})")
 
 
-def kernel_chain(K, chunks, in_lens, carries, use_diff, errs, shapes):
+def kernel_chain(K, chunks, in_lens, carries, use_diff, errs, shapes,
+                 lane=LANE):
     """Run the six kernels as the main path chains them, each held against
     its plain version on the same inputs (tolerance 0: integer codec)."""
     from huffman_codec_tpu_torch.models.chunked import _sharded_cap, _strip_payload
@@ -193,7 +209,7 @@ def kernel_chain(K, chunks, in_lens, carries, use_diff, errs, shapes):
             torch.cuda.synchronize()
 
     C, n = chunks.shape
-    cap = _sharded_cap(n, "canonical", LANE)
+    cap = _sharded_cap(n, "canonical", lane)
     st, rl = K.rle_diff_encode(chunks, in_lens, carries, use_diff, cap)
     sync()
     pst, prl = K.rle_diff_encode_plain(chunks, in_lens, carries, use_diff, cap)
@@ -204,26 +220,26 @@ def kernel_chain(K, chunks, in_lens, carries, use_diff, errs, shapes):
     same("histogram256", counts, K.histogram256_plain(st, rl), errs)
     lens = build_lengths_pm(counts)
     tables = (assign_codes(lens) | (lens << 26)).to(torch.int32)
-    buf, bits = K.lane_pack(st, rl, tables, LANE)
+    buf, bits = K.lane_pack(st, rl, tables, lane)
     sync()
-    pbuf, pbits = K.lane_pack_plain(st, rl, tables, LANE)
+    pbuf, pbits = K.lane_pack_plain(st, rl, tables, lane)
     same("lane_pack", buf, pbuf, errs)
     same("lane_pack.bits", bits, pbits, errs)
     lw = ((bits + 31) >> 5).to(torch.int32)
     flat = _strip_payload(buf, lw).contiguous()
     wb = max(8, -(-int(lw.max()) // 16) * 16)
-    wb = min(wb, K.lane_words_cap(LANE))
+    wb = min(wb, K.lane_words_cap(lane))
     padded = K.repad_words(flat, lw, wb)
     sync()
     same("repad_words", padded, K.repad_words_plain(flat, lw, wb), errs)
     ml = int(lens.max())
     max_len = next(b for b in (8, 12, 16, 24, 31) if b >= ml)
     lt = lens.to(torch.uint8)
-    nl = cap // LANE
+    nl = cap // lane
     pb = padded.view(C, nl, wb)
-    dec = K.lane_decode(pb, lt, rl, LANE, max_len)
+    dec = K.lane_decode(pb, lt, rl, lane, max_len)
     sync()
-    same("lane_decode", dec, K.lane_decode_plain(pb, lt, rl, LANE, max_len),
+    same("lane_decode", dec, K.lane_decode_plain(pb, lt, rl, lane, max_len),
          errs)
     same("lane_decode.vs_streams", dec, st, errs)
     out = K.rle_expand(dec, rl, carries, n, use_diff)
@@ -263,8 +279,8 @@ def edge_batch(dev):
 
 def geometry(kernel: str, where: str, ms: float, nbytes: int, ops: int,
              **extra) -> None:
-    """Record and print one encode kernel's time at one geometry beside
-    its bound."""
+    """Record and print one kernel's time at one geometry beside its
+    bound."""
     bound, by = bound_of(nbytes, ops)
     GEOMETRY_MS.setdefault(kernel, {})[where] = dict(
         ms=ms, bound_ms=bound, bound_by=by, **extra)
@@ -390,9 +406,11 @@ def decode_edges(K, dev, errs):
             valid = torch.arange(nl * lane, device=dev)[None, :] < ln[:, None]
             same("lane_decode.vs_input", dec, torch.where(valid, sy, 0), errs)
     # lanes that do not divide by 16 (the kernel stores them 4 bytes a
-    # thread) at a stride that does not divide by 4, packed by the plain
-    # versions on the host
-    for lane in (100, 36):
+    # thread) or by 4 (a byte a thread), and one over 4096 that does not
+    # divide by 128 (the codec's decode sends it here, not to kernel 7), at
+    # a stride that does not divide by 4, packed by the plain versions on
+    # the host
+    for lane in (100, 36, 6, 4098):
         sy, ln, lt = (torch.from_numpy(a) for a in
                       lane_edge_rows(lane, 5, SEED + lane, 26))
         pb = pack_lane_rows(sy, ln, lt, lane, wb_pad=3)
@@ -405,9 +423,118 @@ def decode_edges(K, dev, errs):
         same("lane_decode.vs_input", dec, torch.where(valid, sy, 0), errs)
     log(f"decode edges: rle_expand on {tuple(s.shape)} run-heavy rows to "
         f"128, {CS} and {4 * CS} B, diff on and off; lane_decode at lane 512, "
-        "2048, 4096 x max_len 8, 12, 16, 24, 31 and at lane 100 and 36 "
-        "(stride not a multiple of 4): equal to their plain versions and "
-        "to the input")
+        "2048, 4096 x max_len 8, 12, 16, 24, 31 and at lane 100, 36, 6 and "
+        "4098 (stride not a multiple of 4): equal to their plain versions "
+        "and to the input")
+
+
+def repad_geometry(K, where, flat, lw, wb):
+    """Time ``repad_words`` at one geometry beside its bound and its
+    library call (one ``masked_scatter_``, never called by the port), and
+    record it in the kernel's ``by_geometry``."""
+    C, nl = lw.shape
+    dev = flat.device
+    mk = torch.arange(wb, device=dev)[None, None, :] < lw[:, :, None]
+
+    def lib():
+        out = torch.zeros((C, nl, wb), dtype=torch.int32, device=dev)
+        return out.masked_scatter_(mk, flat)
+
+    same("repad_words.vs_library", K.repad_words(flat, lw, wb),
+         lib().view(C, -1), {})
+    ms = cuda_ms(lambda: K.repad_words(flat, lw, wb), reps=20, warm=3,
+                 queued=True)
+    lib_ms = cuda_ms(lib, reps=20, warm=3, queued=True)
+    geometry("repad_words", where, ms,
+             4 * int(lw.sum()) + 4 * C * nl + 4 * C * nl * wb,
+             4 * C * nl * wb, library_ms=lib_ms)
+    return ms, lib_ms
+
+
+def shapes_path(K, TorchCodec, CodecConfig, errs):
+    """The configs whose shapes do not divide by 16 (``ODD_CONFIGS`` of
+    ``huffman_codec_tpu_torch/edge_cases.py``: chunks of 1000 bytes, lanes
+    of 100 and 8 symbols), which every wrapper now launches its kernel at:
+    each kernel of the sharded chain held against its plain version at
+    those shapes, ``rle_expand`` on a row past 2^23 bytes, then counted
+    round trips through ``encode``/``decode`` whose containers must equal
+    the CPU plain path's. Returns the launch counts of the round trips."""
+    from huffman_codec_tpu_torch.edge_cases import (
+        ODD_CONFIGS, odd_config_input)
+
+    dev = torch.device("cuda")
+    for name in ("sharded-1000-100", "sharded-lane-8"):
+        cfg = CodecConfig(**ODD_CONFIGS[name])
+        x = np.frombuffer(odd_config_input(name), np.uint8)
+        cs, n_ch = cfg.chunk_size, -(-x.size // cfg.chunk_size)
+        rows = np.zeros(n_ch * cs, np.uint8)
+        rows[: x.size] = x
+        chunks = torch.from_numpy(rows).to(dev).view(n_ch, cs)
+        lens = torch.from_numpy(np.clip(
+            x.size - np.arange(n_ch) * cs, 0, cs).astype(np.int32)).to(dev)
+        car = torch.cat([torch.zeros(1, dtype=torch.uint8, device=dev),
+                         chunks[:-1, -1]])
+        for d in (False, True):
+            kernel_chain(K, chunks, lens, car, d, errs, {}, lane=cfg.lane)
+    rng = np.random.default_rng(SEED + 41)
+    n = (1 << 23) + 100
+    row = torch.from_numpy(rng.integers(0, 3, (1, n), dtype=np.int64)
+                           .astype(np.uint8)).to(dev)
+    ln = torch.tensor([n - 7], dtype=torch.int32, device=dev)
+    car = torch.tensor([5], dtype=torch.uint8, device=dev)
+    for out_len in (1000, 1 << 25):
+        same("rle_expand", K.rle_expand(row, ln, car, out_len, True),
+             K.rle_expand_plain(row, ln, car, out_len, True), errs)
+    log("shapes: the six kernels at chunk 1000 / lane 100 and chunk 4096 / "
+        "lane 8, diff on and off, and rle_expand on a row of "
+        f"{n} B to 1000 and 2^25 B: equal to their plain versions")
+
+    K.reset_launches()
+    for name, fields in ODD_CONFIGS.items():
+        data = odd_config_input(name)
+        for d in (False, True):
+            cfg = CodecConfig(use_diff=d, **fields)
+            gpu, cpu = TorchCodec(cfg), TorchCodec(cfg, device="cpu")
+            if cfg.layout == "sharded":
+                blobs = [gpu.encode(data)]
+                want = [cpu.encode(data)]
+            else:  # encode() keeps v1 at this size: the v3 candidates
+                blobs = [gpu._encode_global(data, None, w)
+                         for w in gpu.global_candidates(len(data))]
+                want = [cpu._encode_global(data, None, w)
+                        for w in cpu.global_candidates(len(data))]
+            if blobs != want:
+                raise AssertionError(f"shapes: {name} diff={d}: GPU "
+                                     "container differs from the CPU plain "
+                                     "path")
+            for b in blobs:
+                if gpu.decode(b) != data or cpu.decode(b) != data:
+                    raise AssertionError(f"shapes: {name} diff={d}: round "
+                                         "trip failed")
+            log(f"shapes: {name} diff={d}: {[len(b) for b in blobs]} B, "
+                "GPU container == CPU plain container, round trip exact")
+    launches = K.launch_counts()
+    log("shapes path launches:", launches)
+    for k in ("rle_diff_encode", "histogram256", "lane_pack", "repad_words",
+              "lane_decode", "rle_expand"):
+        if not launches[k]:
+            raise AssertionError(f"shapes: {k} was never launched: "
+                                 f"{launches}")
+    return launches
+
+
+def fat_buffer(K, sy, lt, lane, pad=0):
+    """(1, nl, wb) lane words of one chunk of symbols ``sy`` (1, nl * lane)
+    under code lengths ``lt`` (1, 256), packed by kernel 3 and re-padded by
+    kernel 4, as the whole-file decode receives them; ``pad`` zero words
+    more a lane than they need."""
+    from huffman_codec_tpu_torch.edge_cases import pack_lane_rows
+
+    ln = torch.tensor([sy.shape[1]], dtype=torch.int32, device=sy.device)
+    pb = pack_lane_rows(sy, ln, lt, lane)
+    if pad:
+        pb = torch.nn.functional.pad(pb, (0, pad))
+    return pb, ln
 
 
 def global_chain(K, cfg, x, whole, errs):
@@ -505,7 +632,10 @@ def stage_split(K, g):
 def fat_edge_batch(K, dev, errs):
     """The fat-lane decode kernel on edge cases at lane 8192, two lanes a
     chunk and one: a full random chunk, a partial last lane, an empty
-    chunk, a one-symbol table, two symbols one byte short of full."""
+    chunk, a one-symbol table, two symbols one byte short of full; and at
+    lane 32768 on ``fat_lane_rows`` of
+    ``huffman_codec_tpu_torch/edge_cases.py``."""
+    from huffman_codec_tpu_torch.edge_cases import fat_lane_rows
     from huffman_codec_tpu_torch.models.chunked import _strip_payload
     from huffman_codec_tpu_torch.ops.canonical import assign_codes, build_lengths_pm
 
@@ -535,6 +665,25 @@ def fat_edge_batch(K, dev, errs):
         valid = torch.arange(L, device=dev)[None, :] < ln[:, None]
         same("lane_decode_lanemajor.vs_input", dec,
              torch.where(valid, chunks, 0), errs)
+    # lane 32768: random bytes, a fixed 7-bit code (never resynchronised),
+    # windows with no code (one- and two-symbol tables), codes of 20-31
+    # bits across sub-sequence borders, a chain past the lane's last word,
+    # a partial lane; against the plain version in one call (its loop runs
+    # once a symbol of the lane) and against kernel 5 at each row's bucket
+    lane = 32768
+    buf, lt, ln, buckets, names = fat_lane_rows(lane, SEED + 9, dev)
+    dec = K.lane_decode_lanemajor(buf, lt, ln, lane, 31)
+    torch.cuda.synchronize()
+    same("lane_decode_lanemajor", dec,
+         K.lane_decode_lanemajor_plain(buf, lt, ln, lane, 31), errs)
+    for r, b in enumerate(buckets):
+        args = (buf[r:r + 1].clone(), lt[r:r + 1].clone(),
+                ln[r:r + 1].clone(), lane, b)
+        same(f"lane_decode_lanemajor.vs_lane_decode {names[r]}",
+             K.lane_decode_lanemajor(*args), K.lane_decode(*args), errs)
+    log(f"fat edges: lane_decode_lanemajor at lane 8192 x 2 and x 1, and "
+        f"at lane 32768 on {names}: equal to its plain version and to "
+        "lane_decode")
 
 
 def global_path(K, TorchCodec, CodecConfig, x, errs):
@@ -624,37 +773,64 @@ def global_path(K, TorchCodec, CodecConfig, x, errs):
             "and off")
 
     # -- kernel 7 and its neighbours at the whole-file geometries ------------
-    k7 = {}
-    for n, g in whole.items():
-        args = (g["pb"], g["lt"], g["cnt"], g["lane"], g["max_len"])
+    def k7_time(where, pb, lt, cnt, lane, max_len, lw_sum):
+        args = (pb, lt, cnt, lane, max_len)
         ms = cuda_ms(lambda: K.lane_decode_lanemajor(*args), reps=10,
                      queued=True)
         ms5 = cuda_ms(lambda: K.lane_decode(*args), reps=5, queued=True)
         same("lane_decode_lanemajor.vs_lane_decode",
              K.lane_decode_lanemajor(*args), K.lane_decode(*args), errs)
-        rows, nl = g["shape"]
-        nbytes = (4 * int(g["lw"].sum()) + 260 * rows
-                  + rows * nl * g["lane"])
+        rows, nl, _ = pb.shape
+        nbytes = 4 * lw_sum + 260 * rows + rows * nl * lane
         # a table lookup, two shifts, a store and a refill test a symbol
-        bound, by = bound_of(nbytes, 8 * int(g["cnt"].sum()))
+        ops = 8 * int(cnt.sum())
+        geometry("lane_decode_lanemajor", where, ms, nbytes, ops,
+                 lane_decode_ms=ms5)
+        return ms, ms5, nbytes, ops
+
+    k7 = {}
+    for n, g in whole.items():
+        rows, nl = g["shape"]
+        ms, ms5, nbytes, ops = k7_time(
+            f"{g['shape']} x {g['lane']}, {n} B in", g["pb"], g["lt"],
+            g["cnt"], g["lane"], g["max_len"], int(g["lw"].sum()))
+        bound, by = bound_of(nbytes, ops)
         k7[n] = dict(ms=ms, plain_ms=g["plain_ms"], bound_ms=bound,
                      bound_by=by, lane_decode_ms=ms5, shape=g["shape"])
         log(f"lane_decode_lanemajor {g['shape']} x {g['lane']} ({n} B in): "
-            f"{ms:.4f} ms, plain {g['plain_ms']:.0f} ms, bound "
-            f"{bound:.5f} ms by {by} ({nbytes} B); "
-            f"lane_decode on the same buffer {ms5:.4f} ms")
+            f"plain {g['plain_ms']:.0f} ms")
+    # the geometry of 2.5 MiB, (1, 112) x 32768, on random bytes (8-bit
+    # codes), and on a fixed 7-bit code at a stride of 32 words more than
+    # it needs: sub-sequences of 288 bits, which 7 does not divide, so no
+    # speculative chain is ever in step with the true one (the worst case)
+    lane, nl = 32768, 112
+    rng = np.random.default_rng(SEED + 10)
+    for what, nsym, bits, pad in (("random bytes", 256, 8, 0),
+                                  ("fixed 7-bit code", 128, 7, 32)):
+        sy = torch.from_numpy(rng.integers(0, nsym, (1, nl * lane),
+                                           dtype=np.int64).astype(np.uint8)
+                              ).to(dev)
+        lt = torch.zeros((1, 256), dtype=torch.uint8, device=dev)
+        lt[0, :nsym] = bits
+        pb, cnt = fat_buffer(K, sy, lt, lane, pad)
+        ms, ms5, nbytes, ops = k7_time(
+            f"(1, 112) x 32768, {what}", pb, lt, cnt, lane, 8,
+            nl * lane * bits // 32)
+        same("lane_decode_lanemajor.vs_input",
+             K.lane_decode_lanemajor(pb, lt, cnt, lane, 8), sy, errs)
+        k7[what] = ms
+        del sy, pb
     g = whole[GLOBAL_SIZES[2]]
     C, L = g["chunks"].shape
+    repad_geometry(K, f"the 2.5 MiB whole-file chunk ({g['shape']} lanes, "
+                   f"wb {g['wb']})", g["flat"], g["lw"], g["wb"])
     for name, fn, nbytes in (
             ("histogram256", lambda: K.histogram256(g["chunks"], g["lens"]),
              int(g["lens"].sum()) + 4 * C + 1024 * C),
             ("lane_pack", lambda: K.lane_pack(g["chunks"], g["lens"],
                                               g["tables"], g["lane"]),
              int(g["lens"].sum()) + 1028 * C + 4 * (L // g["lane"])
-             * (K.lane_words_cap(g["lane"]) + 1)),
-            ("repad_words", lambda: K.repad_words(g["flat"], g["lw"], g["wb"]),
-             4 * int(g["lw"].sum()) + 4 * g["lw"].numel()
-             + 4 * g["lw"].numel() * g["wb"])):
+             * (K.lane_words_cap(g["lane"]) + 1))):
         ms = cuda_ms(fn, reps=10, queued=True)
         if name == "lane_pack":
             geometry(name, f"lane {g['lane']}, the 2.5 MiB whole-file chunk "
@@ -665,6 +841,8 @@ def global_path(K, TorchCodec, CodecConfig, x, errs):
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} B)")
     stage_split(K, g)
     del whole, g
+    k7_row = dict(k7[GLOBAL_SIZES[2]], random_bytes_ms=k7["random bytes"],
+                  fixed_7bit_ms=k7["fixed 7-bit code"])
 
     # -- device encode and decode, inputs resident ---------------------------
     for n in GLOBAL_SIZES:
@@ -702,7 +880,7 @@ def global_path(K, TorchCodec, CodecConfig, x, errs):
                          f"encode {peaks[0]:.2f} GiB, decode {peaks[1]:.2f} "
                          "GiB")
             log(line)
-    return launches, k7[GLOBAL_SIZES[2]]
+    return launches, k7_row
 
 
 ADAPT_W, BAND_H = 512, 128  # 128 x 512 bands: one 64 KiB chunk each
@@ -832,8 +1010,8 @@ def sharded_adapt_chain(K, A, codec, xd, bs, cap, errs):
                                 queued=True),
         "lane_pack": cuda_ms(lambda: K.lane_pack(st, rl, tables, LANE),
                              reps=10, queued=True),
-        "repad_words": cuda_ms(lambda: K.repad_words(flat, lw, wb), reps=10,
-                               queued=True),
+        "repad_words": repad_geometry(K, f"all {nb} bands", flat, lw,
+                                      wb)[0],
         "lane_decode": cuda_ms(lambda: K.lane_decode(pb, lt, rl, LANE,
                                                      max_len), reps=10,
                              queued=True),
@@ -1477,6 +1655,8 @@ def main() -> int:
                      / HBM_BYTES_PER_S * 1e3)
         elif name == "lane_pack":
             geometry(name, "lane 512, the sharded step", ms, nbytes, n_ops)
+    repad_geometry(K, "the sharded step (diff on)", s["flat"], s["lw"],
+                   s["wb"])
     buf_s = K.lane_pack(s["st"], s["rl"], s["tables"], LANE)[0]
     ops = {
         "rle_classify": lambda: rle_classify(s["dec"], s["rl"]),
@@ -1515,6 +1695,11 @@ def main() -> int:
     main_shapes.clear()
     torch.cuda.empty_cache()
 
+    # -- shapes that do not divide by 16 -------------------------------------
+    slaunches = shapes_path(K, TorchCodec, CodecConfig, errs)
+    for row in rows:
+        row["launches_shapes"] = slaunches[row["name"]]
+
     # -- the global layout -----------------------------------------------------
     glaunches, k7 = global_path(K, TorchCodec, CodecConfig, x, errs)
     for row in rows:
@@ -1530,7 +1715,9 @@ def main() -> int:
         "ms": k7["ms"], "plain_ms": k7["plain_ms"],
         "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
         "library_ms": None,
-        "lane_decode_ms": k7["lane_decode_ms"]})
+        "lane_decode_ms": k7["lane_decode_ms"],
+        "random_bytes_ms": k7["random_bytes_ms"],
+        "fixed_7bit_ms": k7["fixed_7bit_ms"]})
     alaunches, row_1b, row_walk = adaptive_path(K, TorchCodec, CodecConfig, x,
                                                 errs)
     for row in rows:

@@ -11,7 +11,9 @@
 // card's rate. Design: one block per chunk, 16-byte loads, and one private
 // 256-bin histogram per warp in shared memory so that only the 32 lanes
 // of one warp ever contend for a bin; the warp copies are summed at the
-// end. Bytes past the valid length are never read. (The TPU kernel's
+// end. Bytes past the valid length are never read. A row of any length L
+// is read bytewise up to its first 16-byte aligned address, then in 16-byte
+// loads, then bytewise again for the tail. (The TPU kernel's
 // radix-16 outer product on the MXU exists only because the TPU has no
 // fast scatter; it has no counterpart here.)
 
@@ -36,8 +38,13 @@ histogram_kernel(const uint8_t* __restrict__ data,
   const uint8_t* x = data + static_cast<size_t>(c) * L;
   const int length = min(max(lens[c], 0), L);
   int* h = hist[threadIdx.x / 32];
-  const int n_vec = length / 16;
-  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  // rows start at c * L: up to 15 bytes before the first aligned line
+  const int head = min(
+      length,
+      static_cast<int>((16 - (reinterpret_cast<uintptr_t>(x) & 15)) & 15));
+  if (threadIdx.x < head) atomicAdd(&h[x[threadIdx.x]], 1);
+  const int n_vec = (length - head) / 16;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
   for (int v = threadIdx.x; v < n_vec; v += kThreads) {
     const uint4 w = xv[v];
     const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
@@ -46,7 +53,7 @@ histogram_kernel(const uint8_t* __restrict__ data,
       atomicAdd(&h[(ws[j >> 2] >> (8 * (j & 3))) & 255], 1);
     }
   }
-  for (int i = n_vec * 16 + threadIdx.x; i < length; i += kThreads) {
+  for (int i = head + n_vec * 16 + threadIdx.x; i < length; i += kThreads) {
     atomicAdd(&h[x[i]], 1);
   }
   __syncthreads();

@@ -5,7 +5,7 @@
 //
 // Contract: buf (C, nl, wb) u32, lane k of chunk c MSB-first from word 0;
 // lens_tables (C, 256) u8 code lengths; lengths (C,) i32 symbols per chunk
-// -> out (C, nl * lane) u8, lane % 4 == 0, where lane k decodes
+// -> out (C, nl * lane) u8, any lane, where lane k decodes
 // clip(lengths[c] - k*lane, 0, lane) symbols and every other byte is 0.
 // A symbol's code length is the first l in 1..max_len with
 // (window >> (32 - l)) < bound[l], its canonical index base[l] + that
@@ -35,8 +35,10 @@
 //     up to three symbols, the next word always loaded ahead of its refill.
 //   - Output: each thread writes its lane's symbols into a shared row, 4
 //     bytes a store; then the block stores the group's contiguous output
-//     coalesced, 16 bytes a thread, zeros past each lane's symbols
-//     included, so an empty lane costs no decode loop.
+//     coalesced, 16 bytes a thread (4 where lane % 16 != 0, 1 where
+//     lane % 4 != 0, since the group's output then starts off a 4-byte
+//     line), zeros past each lane's symbols included, so an empty lane
+//     costs no decode loop.
 // A lane is not split over threads: kernel 7's speculative decode at every
 // bit position costs a table decode a bit (3.2 a symbol on the sharded
 // step's data) and two doubling passes, about 58 operations a symbol
@@ -77,6 +79,9 @@ __device__ __forceinline__ uint32_t code_at(uint32_t hi, int t0, int t1,
          canon[clampi(base[l] + (hi >> (32 - l)))];
 }
 
+// kBytes: the output is stored a byte a thread (lane % 4 != 0), in an
+// instance of its own, so the other lanes' instance is compiled as before
+template <bool kBytes>
 __global__ void __launch_bounds__(kThreads)
 lane_decode_kernel(const uint32_t* __restrict__ buf,
                    const uint8_t* __restrict__ lens_tables,
@@ -271,7 +276,14 @@ lane_decode_kernel(const uint32_t* __restrict__ buf,
   }
 
   // -- the group's output, coalesced; zeros past each lane's symbols -------
-  if ((lane & 15) == 0) {
+  if (kBytes) {
+    for (int q = tid; q < n_out; q += kThreads) {
+      const int kk = q / lane;
+      const int j = q - kk * lane;
+      const int ns = min(max(length - (k0 + kk) * lane, 0), lane);
+      o[q] = j < ns ? s_out[kk * os + j] : 0;
+    }
+  } else if ((lane & 15) == 0) {
     for (int q = tid * 16; q < n_out; q += kThreads * 16) {
       const int kk = q / lane;
       const int j = q - kk * lane;
@@ -321,11 +333,12 @@ extern "C" int lane_decode_launch(const void* buf, const void* lens_tables,
   const int bpc = (nl + g_max - 1) / g_max;  // blocks a chunk
   const int G = (nl + bpc - 1) / bpc;
   const int smem = G * per_lane;
+  auto* kernel = (lane & 3) ? lane_decode_kernel<true>
+                            : lane_decode_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      lane_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lane_decode_kernel<<<C * bpc, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<C * bpc, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(buf),
       static_cast<const uint8_t*>(lens_tables),
       static_cast<const int*>(lengths), static_cast<uint8_t*>(out), nl, wb,

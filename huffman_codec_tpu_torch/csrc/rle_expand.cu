@@ -7,7 +7,9 @@
 // rle_classify).
 //
 // Contract: streams (C, n) u8, lens (C,) i32 valid stream bytes, carries
-// (C,) u8 -> out (C, out_len) u8, out_len % 16 == 0. Count bytes are those
+// (C,) u8 -> out (C, out_len) u8, out_len % 16 == 0 (the wrapper rounds
+// it up and cuts the rows back: the output is a prefix of the decoded row
+// either way). Any row length n below 2^31 - 2^21. Count bytes are those
 // of the reference decoder's FSM (match, count <= 3) run from the start of
 // each row. A literal stays itself and a count byte v becomes v repeats of
 // the byte before it; with use_diff the result is the running sum mod 256
@@ -41,6 +43,10 @@
 //      finding their sources by a binary search over the offsets, was
 //      slower at the sharded step; PERF.md has both times.)
 // Threads whose segment lies past the row's length skip steps 1 and 3.
+// The block stops after the tile whose output reaches out_len: nothing
+// after it is stored, and the 32-bit output offsets stay below out_len plus
+// one tile's 2^20 bytes. The running diff sum is kept mod 256 from tile to
+// tile, so it never carries into the offset packed above it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -205,6 +211,7 @@ rle_expand_kernel(const uint8_t* __restrict__ streams,
     const long long first = run + mine;
     const int A = static_cast<int>(run >> 32);
     run += tile_sum;
+    run = (run & ~0xFFFFFFFFLL) | (run & 255);  // the sum mod 256
     const int B = static_cast<int>(run >> 32);
 
     // 4. the tile's output [A, B) in windows of kWin bytes from A's 16-byte
@@ -242,6 +249,7 @@ rle_expand_kernel(const uint8_t* __restrict__ streams,
       }
       __syncthreads();
     }
+    if (B >= out_len) break;  // the rest of the row is past out_len
   }
 
   // the last partial group, then zeros to out_len

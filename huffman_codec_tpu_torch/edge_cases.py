@@ -256,3 +256,121 @@ def pack_edge_rows(lane: int, nl: int, seed: int):
     lt = torch.from_numpy(np.stack(tables)).to(torch.int64)
     packed = (assign_codes(lt) | (lt << 26)).to(torch.int32).numpy()
     return np.stack(rows), np.array(lens, np.int32), packed, np.stack(tables)
+
+
+def fat_lane_rows(lane: int, seed: int, dev="cpu"):
+    """One-lane chunks for the fat-lane decoder (kernel 7) on ``dev``:
+    (buf (R, 1, wb) int32, code lengths (R, 256) uint8, symbol counts (R,)
+    int32, max_len buckets (R,), names). Rows of one stride: a lane's words
+    past its own read as 0 to the decoder, so the zero padding changes no
+    symbol. Every row but the last holds ``lane`` symbols.
+
+    * ``random-8bit``: random bytes under a flat 8-bit code;
+    * ``fixed-7bit``: 128 symbols under a flat 7-bit code, whose chains
+      never resynchronise at sub-sequence starts that 7 does not divide;
+    * ``no-code``: a one-symbol table (every window that starts with bit 1
+      holds no code) over zero bits for 5/8 of the lane and then random
+      bits: the chain stops there and every later symbol is canon_syms[0];
+    * ``no-code-2``: the same with two symbols of 1 and 2 bits (``0`` and
+      ``10``; a window starting ``11`` holds no code), so the symbols
+      before the stop are mixed and canon_syms[0] differs from the second;
+    * ``deep-31``: a code of lengths 1 .. 31, 31 with symbols drawn from
+      its 12 deepest codes (20-31 bits; those of 27-31 bits share the
+      packed 26-bit field as the codec packs them), so codes straddle the
+      sub-sequence borders;
+    * ``deep-random``: random words under the same code, a chain of short
+      codes that runs past the lane's last word;
+    * ``gradient``: a smooth gradient under its own code, a partial lane."""
+    from huffman_codec_tpu_torch.ops.canonical import build_lengths_pm
+
+    rng = np.random.default_rng(seed)
+    # (name, symbols to pack or None, count, code lengths, words or None)
+    rows = []
+
+    def flat_code(nsym, bits):
+        t = np.zeros(N_SYM, np.uint8)
+        t[:nsym] = bits
+        return t
+
+    def words_of(bits):  # MSB-first 32-bit words of a 0/1 array
+        bits = np.r_[bits, np.zeros(-len(bits) % 32, np.uint8)]
+        return np.packbits(bits.astype(np.uint8)).view(">u4").astype(
+            np.uint64)
+
+    rows.append(("random-8bit", rng.integers(0, N_SYM, lane), lane,
+                 flat_code(N_SYM, 8), None))
+    rows.append(("fixed-7bit", rng.integers(0, 128, lane), lane,
+                 flat_code(128, 7), None))
+
+    stop = lane * 5 // 8  # symbols before the window with no code
+    one = np.zeros(N_SYM, np.uint8)
+    one[65] = 1
+    tail = rng.integers(0, 2, lane, dtype=np.uint8)
+    rows.append(("no-code", None, lane, one,
+                 words_of(np.r_[np.zeros(stop, np.uint8), 1, tail])))
+    two = np.zeros(N_SYM, np.uint8)
+    two[[3, 9]] = (1, 2)  # 3 -> 0, 9 -> 10
+    ab = rng.integers(0, 2, stop)
+    code = np.concatenate([[0] if v == 0 else [1, 0] for v in ab])
+    rows.append(("no-code-2", None, lane, two,
+                 words_of(np.r_[code, 1, 1, tail])))
+    deep = np.zeros(N_SYM, np.uint8)
+    syms = rng.permutation(N_SYM)[:32]
+    deep[syms] = np.r_[np.arange(1, 32), 31]
+    rows.append(("deep-31", rng.choice(syms[-12:], size=lane), lane, deep,
+                 None))
+    rows.append(("deep-random", None, lane, deep,
+                 rng.integers(0, 1 << 32, lane // 32, dtype=np.uint64)))
+    i = np.arange(lane)
+    grad = ((i // 512) * 3 + (i % 512) * 2) // 5 + rng.integers(-2, 3, lane)
+    grad = (grad & 255).astype(np.uint8)
+    counts = torch.from_numpy(np.bincount(grad, minlength=N_SYM)[None, :])
+    gl = build_lengths_pm(counts)[0].numpy().astype(np.uint8)
+    rows.append(("gradient", grad, lane - lane // 3 - 5, gl, None))
+
+    bufs = []
+    for name, sy, m, lt, words in rows:
+        if words is None:
+            pb = pack_lane_rows(
+                torch.from_numpy(np.asarray(sy, np.uint8)[None, :]).to(dev),
+                torch.tensor([m], dtype=torch.int32, device=dev),
+                torch.from_numpy(lt[None, :]).to(dev), lane)
+            bufs.append(pb.reshape(-1))
+        else:
+            bufs.append(torch.from_numpy(
+                words.astype(np.uint32).view(np.int32)).to(dev))
+    wb = max(b.numel() for b in bufs)
+    buf = torch.zeros((len(rows), 1, wb), dtype=torch.int32, device=dev)
+    for r, b in enumerate(bufs):
+        buf[r, 0, : b.numel()] = b
+    tables = np.stack([r[3] for r in rows])
+    buckets = [next(b for b in (8, 12, 16, 24, 31) if b >= int(t.max()))
+               for t in tables]
+    return (buf, torch.from_numpy(tables).to(dev),
+            torch.tensor([r[2] for r in rows], dtype=torch.int32, device=dev),
+            buckets, [r[0] for r in rows])
+
+
+# CodecConfig fields of the configs whose shapes do not divide by 16
+# (chunks of 1000 bytes, lanes of 100 and 8 symbols): every kernel of
+# their paths launches at such a shape on a card
+ODD_CONFIGS = {
+    "sharded-1000-100": dict(layout="sharded", chunk_size=1000, lane=100),
+    "sharded-lane-8": dict(layout="sharded", chunk_size=4096, lane=8),
+    "global-1000-100": dict(chunk_size=1000, lane=100),
+    "global-1000-100-chunked": dict(chunk_size=1000, lane=100,
+                                    whole_file=False),
+}
+
+
+def odd_config_input(name: str, n: int = 5000) -> bytes:
+    """The input of an ``ODD_CONFIGS`` entry: run-heavy bytes (runs of 40
+    over four values) for lane 8, else a 100-wide gradient with +-2 noise
+    (seed 2000)."""
+    rng = np.random.default_rng(2000)
+    i = np.arange(n)
+    if name == "sharded-lane-8":
+        return np.repeat(rng.integers(0, 4, n // 40 + 1), 40)[:n].astype(
+            np.uint8).tobytes()
+    return ((((i // 100) * 3 + (i % 100) * 2) // 5
+             + rng.integers(-2, 3, n)) & 255).astype(np.uint8).tobytes()

@@ -377,7 +377,7 @@ class TorchCodec:
                                  "rows (chunk_size / width)")
         if cfg.entropy != "canonical":
             raise NotImplementedError(
-                "FGK entropy comes with ROADMAP.md queue 1 item 8")
+                "FGK entropy comes with ROADMAP.md queue 1 item 2")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device; pass device='cpu' to run "
@@ -669,7 +669,7 @@ class TorchCodec:
     def _check_supported(self, hdr: dict) -> None:
         if hdr["entropy"] != ENTROPY_CANONICAL:
             raise NotImplementedError(
-                "FGK containers come with ROADMAP.md queue 1 item 8")
+                "FGK containers come with ROADMAP.md queue 1 item 2")
 
     def _stage_step(self, blob: bytes, hdr: dict, c0: int, c1: int, S: int):
         """Host -> device transfer of one decode step: the step's dense

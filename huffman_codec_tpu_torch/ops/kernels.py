@@ -4,10 +4,12 @@ adaptive band stage) and the group walk of the grouped adaptive manifest.
 
 Each kernel has three parts here:
 
-* a wrapper that launches the kernel for CUDA tensors and adds one to its
+* a wrapper that launches the kernel for CUDA tensors, at every shape a
+  ``CodecConfig`` of the JAX package admits, and adds one to its
   ``launches`` count per launch. Given CPU tensors it runs the plain
-  version instead (that is the only case it does); any other device, a
-  wrong dtype, shape or layout raises;
+  version instead (that is the only case it does: no CUDA tensor ever
+  takes a plain version); any other device, a wrong dtype, shape or
+  layout raises;
 * the plain PyTorch version of the same function, vectorised so that it
   also runs at full size on the card, where ``chip_smoke.py`` holds the
   kernel against it;
@@ -20,6 +22,8 @@ them as int32 holding the same bits.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -115,7 +119,10 @@ def rle_diff_encode(chunks: torch.Tensor, lengths: torch.Tensor,
 
     chunks (C, n) uint8, lengths (C,) int32 valid bytes, carries (C,)
     uint8. Returns (streams (C, cap) uint8, zero past each end; encoded
-    lengths (C,) int32). CUDA needs n % 16 == 0 and n, cap < 2^30.
+    lengths (C,) int32). On CUDA, n and cap stay below 2^30; rows whose
+    length does not divide by 16 are padded with zeros to a multiple of 16
+    for the kernel's 16-byte loads (bytes past ``lengths`` are never
+    encoded, so the padding changes nothing).
 
     ``tile`` > 0 (a power of two dividing n, without diff) is the tile
     mode: each row is n / tile tiles, every tile encoded as a stream of
@@ -132,9 +139,12 @@ def rle_diff_encode(chunks: torch.Tensor, lengths: torch.Tensor,
     dev = _check_cuda("rle_diff_encode", (chunks, torch.uint8, 2),
                       (lengths, torch.int32, 1), (carries, torch.uint8, 1))
     C, n = chunks.shape
-    if n % 16 or n >= 1 << 30 or cap >= 1 << 30:
-        raise ValueError("rle_diff_encode: chunk length must divide by 16; "
-                         "rows and streams hold fewer than 2^30 bytes")
+    if n >= 1 << 30 or cap >= 1 << 30:
+        raise ValueError("rle_diff_encode: rows and streams hold fewer than "
+                         "2^30 bytes")
+    if n % 16:
+        chunks = torch.nn.functional.pad(chunks, (0, -n % 16))
+        n = chunks.shape[1]
     streams = torch.empty((C, cap), dtype=torch.uint8, device=dev)
     out_lens = torch.empty((C,), dtype=torch.int32, device=dev)
     if C:
@@ -173,14 +183,12 @@ def histogram256_plain(data, lengths):
 
 def histogram256(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """(C, 256) int32 byte counts of each (C, L) uint8 row's first
-    ``lengths[c]`` bytes. CUDA needs L % 16 == 0."""
+    ``lengths[c]`` bytes, any L."""
     if data.device.type == "cpu":
         return histogram256_plain(data, lengths)
     dev = _check_cuda("histogram256", (data, torch.uint8, 2),
                       (lengths, torch.int32, 1))
     C, L = data.shape
-    if L % 16:
-        raise ValueError("histogram256: row length must divide by 16")
     out = torch.empty((C, N_SYM), dtype=torch.int32, device=dev)
     if C:
         _launch("histogram", "histogram_launch", (data, lengths, out),
@@ -233,14 +241,14 @@ def lane_pack(data: torch.Tensor, lengths: torch.Tensor,
     tables (C, 256) int32: ``code | len << 26`` per symbol. Lane k of a
     chunk holds symbols [k*lane, (k+1)*lane) packed MSB-first. Returns
     (words (C, L/lane, lane_words_cap(lane)) int32 zero-padded, bits
-    (C, L/lane) int32). CUDA needs lane % 16 == 0."""
+    (C, L/lane) int32). Any lane dividing L."""
     if data.device.type == "cpu":
         return lane_pack_plain(data, lengths, tables, lane)
     dev = _check_cuda("lane_pack", (data, torch.uint8, 2),
                       (lengths, torch.int32, 1), (tables, torch.int32, 2))
     C, L = data.shape
-    if L % lane or lane % 16:
-        raise ValueError("lane_pack: L must divide by lane, lane by 16")
+    if L % lane:
+        raise ValueError("lane_pack: L must divide by lane")
     nl, W = L // lane, lane_words_cap(lane)
     words = torch.empty((C, nl, W), dtype=torch.int32, device=dev)
     bits = torch.empty((C, nl), dtype=torch.int32, device=dev)
@@ -284,15 +292,55 @@ def repad_words(flat: torch.Tensor, lane_words: torch.Tensor,
     dev = _check_cuda("repad_words", (flat, torch.int32, 1),
                       (lane_words, torch.int32, 2))
     C, nl = lane_words.shape
+    if wb < 1 or C * nl * wb >= REPAD_MAX or flat.numel() >= 1 << 31:
+        raise ValueError("repad_words: wb >= 1, and the output and the words "
+                         f"hold fewer than {REPAD_MAX} and 2^31 words")
     out = torch.empty((C, nl * wb), dtype=torch.int32, device=dev)
-    if C:
-        _launch("repad", "repad_launch", (flat, lane_words, out),
-                (C, nl, wb, flat.numel()), dev)
+    if C * nl:
+        scratch, epoch = _repad_scratch(dev, repad_scratch_words(C, nl, wb))
+        _launch("repad", "repad_launch", (flat, lane_words, out, scratch),
+                (scratch.numel(), C, nl, wb, flat.numel(), epoch), dev)
         repad_words.launches += 1
     return out
 
 
 repad_words.launches = 0
+# output slots a block of csrc/repad.cu covers (its kSpan); the launcher
+# refuses a scratch buffer sized from a smaller value
+REPAD_SPAN = 4096
+REPAD_MAX = (1 << 31) - REPAD_SPAN
+_repad_scratches: dict = {}
+_repad_lock = threading.Lock()
+
+
+def repad_scratch_words(C: int, nl: int, wb: int) -> int:
+    """int64 words of ``repad_words``' scratch: a status word for each
+    block of REPAD_SPAN output slots."""
+    return -(-(C * nl * wb) // REPAD_SPAN)
+
+
+def _repad_scratch(dev: torch.device, words: int):
+    """(scratch, launch number) for ``repad_words`` on the current stream
+    of ``dev``. A status word counts only in the launch whose number it
+    carries, so the words need no zeroing between launches: one scratch is
+    kept for each stream (launches on one stream run in order), replaced by
+    a larger one when a launch needs more, and zeroed again before the
+    numbers (1 .. 2^31 - 1) come round. A CUDA graph replays the number it
+    captured, so under capture the words are zeroed in the graph itself."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    with _repad_lock:  # two threads on one stream must not share a number
+        buf, epoch = _repad_scratches.get(key, (None, 0))
+        if buf is None or buf.numel() < words:
+            buf = torch.zeros(max(words, 1024), dtype=torch.int64,
+                              device=dev)
+        epoch += 1
+        if epoch >= 1 << 31:
+            buf.zero_()
+            epoch = 1
+        if torch.cuda.is_current_stream_capturing():
+            buf[:words].zero_()
+        _repad_scratches[key] = (buf, epoch)
+    return buf, epoch
 
 
 # ---------------------------------------------------------------------------
@@ -354,15 +402,14 @@ def lane_decode(buf: torch.Tensor, lens_tables: torch.Tensor,
     """Canonical decode of padded lanes (C, nl, wb) int32 with (C, 256)
     uint8 code lengths; lane k decodes clip(lengths[c] - k*lane, 0, lane)
     symbols. Returns (C, nl * lane) uint8, zero past each lane's symbols.
-    CUDA needs lane % 4 == 0 and 1 <= max_len <= 31."""
+    Any lane; 1 <= max_len <= 31."""
     if buf.device.type == "cpu":
         return lane_decode_plain(buf, lens_tables, lengths, lane, max_len)
     dev = _check_cuda("lane_decode", (buf, torch.int32, 3),
                       (lens_tables, torch.uint8, 2), (lengths, torch.int32, 1))
     C, nl, wb = buf.shape
-    if lane % 4 or not 1 <= max_len <= 31:
-        raise ValueError("lane_decode: lane must divide by 4, 1 <= max_len "
-                         "<= 31")
+    if not 1 <= max_len <= 31:
+        raise ValueError("lane_decode: 1 <= max_len <= 31")
     out = torch.empty((C, nl * lane), dtype=torch.uint8, device=dev)
     if C:
         _launch("lane_decode", "lane_decode_launch",
@@ -393,7 +440,8 @@ def lane_decode_lanemajor(buf: torch.Tensor, lens_tables: torch.Tensor,
                           max_len: int = 31):
     """Canonical decode with ``lane_decode``'s contract for few fat lanes
     (the whole-file container: up to 112 lanes of up to 32768 symbols):
-    one block per lane instead of one thread per lane. Any C and nl;
+    one block per lane, its bits cut into ``fat_subseq_bits(wb)``-bit
+    sub-sequences decoded in parallel and resynchronised. Any C and nl;
     needs lane % 128 == 0 and 1 <= max_len <= 31."""
     if lane % 128 or not 1 <= max_len <= 31:
         raise ValueError("lane_decode_lanemajor: lane must divide by 128, "
@@ -407,13 +455,23 @@ def lane_decode_lanemajor(buf: torch.Tensor, lens_tables: torch.Tensor,
     out = torch.empty((C, nl * lane), dtype=torch.uint8, device=dev)
     if C * nl:
         _launch("lane_decode_lm", "lane_decode_lm_launch",
-                (buf, lens_tables, lengths, out), (C, nl, wb, lane, max_len),
-                dev)
+                (buf, lens_tables, lengths, out),
+                (C, nl, wb, lane, max_len, fat_subseq_bits(wb)), dev)
         lane_decode_lanemajor.launches += 1
     return out
 
 
 lane_decode_lanemajor.launches = 0
+# threads of a block of csrc/lane_decode_lm.cu: a sub-sequence each
+FAT_THREADS = 1024
+
+
+def fat_subseq_bits(wb: int) -> int:
+    """Bits of a sub-sequence of ``lane_decode_lanemajor``: the fewest
+    words that let FAT_THREADS sub-sequences cover a lane of ``wb`` words,
+    at least 3 (more than a code) and odd, so that the words the threads of
+    a warp read at once lie in 32 different shared-memory banks."""
+    return 32 * (max(3, -(-wb // FAT_THREADS)) | 1)
 
 
 # ---------------------------------------------------------------------------
@@ -438,26 +496,32 @@ def rle_expand(streams: torch.Tensor, lengths: torch.Tensor,
     each: the count bytes found by the decoder FSM (what
     ops/rle.rle_classify computes), each expanded to its run, with the
     per-chunk diff revert seeded by ``carries`` when ``use_diff``. Returns
-    (C, out_len) uint8, zero past each chunk's decoded length. CUDA needs
-    out_len % 16 == 0 and n < 2^23."""
+    (C, out_len) uint8, zero past each chunk's decoded length. On CUDA the
+    kernel writes rows of out_len rounded up to 16 bytes (its 16-byte
+    stores), which are cut back to out_len: the output is a prefix of the
+    decoded row either way. Rows and output index with 32-bit ints."""
     if streams.device.type == "cpu":
         return rle_expand_plain(streams, lengths, carries, out_len, use_diff)
     dev = _check_cuda("rle_expand", (streams, torch.uint8, 2),
                       (lengths, torch.int32, 1), (carries, torch.uint8, 1))
     C, n = streams.shape
-    if out_len % 16 or n >= 1 << 23:
-        raise ValueError("rle_expand: out_len must divide by 16 and rows "
-                         "hold fewer than 2^23 bytes")
-    out = torch.empty((C, out_len), dtype=torch.uint8, device=dev)
+    if n >= RLE_EXPAND_MAX or out_len >= RLE_EXPAND_MAX:
+        raise ValueError("rle_expand: rows and output hold fewer than "
+                         f"{RLE_EXPAND_MAX} bytes (32-bit offsets)")
+    width = -(-out_len // 16) * 16
+    out = torch.empty((C, width), dtype=torch.uint8, device=dev)
     if C:
         _launch("rle_expand", "rle_expand_launch",
                 (streams, lengths, carries, out),
-                (C, n, out_len, int(use_diff)), dev)
+                (C, n, width, int(use_diff)), dev)
         rle_expand.launches += 1
-    return out
+    return out if width == out_len else out[:, :out_len].contiguous()
 
 
 rle_expand.launches = 0
+# csrc/rle_expand.cu keeps offsets in ints: a tile adds at most 2^20
+# output bytes past out_len before the kernel stops
+RLE_EXPAND_MAX = (1 << 31) - (1 << 21)
 
 
 # ---------------------------------------------------------------------------

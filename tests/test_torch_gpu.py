@@ -14,8 +14,8 @@ torch = pytest.importorskip("torch")
 
 from huffman_codec_tpu_torch import CodecConfig, TorchCodec  # noqa: E402
 from huffman_codec_tpu_torch.edge_cases import (  # noqa: E402
-    lane_edge_rows, match_plain_rows, pack_edge_rows, pack_lane_rows,
-    rle_edge_rows, rle_encode_edge_rows)
+    ODD_CONFIGS, lane_edge_rows, match_plain_rows, odd_config_input,
+    pack_edge_rows, pack_lane_rows, rle_edge_rows, rle_encode_edge_rows)
 from huffman_codec_tpu_torch.ops import adapt as tad  # noqa: E402
 from huffman_codec_tpu_torch.ops import canonical as tcan  # noqa: E402
 from huffman_codec_tpu_torch.ops import kernels as K  # noqa: E402
@@ -346,3 +346,227 @@ def test_rle_encode_launcher_refuses_short_scratch(cuda):
         torch.cuda.synchronize()
         assert (err == 0) == ok
         assert bool((ol == -1).all()) != ok
+
+
+# -- shapes the JAX package encodes, which the wrappers once refused --------
+
+
+def _rows_off_16(dev, n):
+    """match_plain_rows cut to ``n`` columns, with lengths n, n - 1, 17,
+    1000 and 0 among them."""
+    chunks, _, carries = match_plain_rows()
+    ch = np.ascontiguousarray(chunks[:, :n])
+    ln = np.array([n, n - 1, n, 17, min(1000, n), 0], np.int32)
+    return (torch.from_numpy(ch).to(dev), torch.from_numpy(ln).to(dev),
+            torch.from_numpy(carries).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 1003])
+@pytest.mark.parametrize("use_diff", [False, True])
+def test_encode_kernels_rows_off_16(cuda, use_diff, n):
+    # kernels 1 and 2 on rows whose length does not divide by 16 (a
+    # chunk_size of 1000), into streams of an odd cap
+    ch, ln, car = _rows_off_16(cuda, n)
+    cap = trle.rle_max_encoded_len(n) + 3
+    K.reset_launches()
+    s, l = K.rle_diff_encode(ch, ln, car, use_diff, cap)
+    ps, pl = K.rle_diff_encode_plain(ch, ln, car, use_diff, cap)
+    assert torch.equal(l, pl) and torch.equal(s, ps)
+    for data, lens in ((s, l), (ch, ln)):
+        assert torch.equal(K.histogram256(data, lens),
+                           K.histogram256_plain(data, lens))
+    counts = K.launch_counts()
+    assert counts["rle_diff_encode"] == 1 and counts["histogram256"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane,nl", [(100, 10), (8, 25), (4100, 2)])
+def test_lane_pack_ragged_lanes(cuda, lane, nl):
+    # lanes that do not divide by 16: a thread's 16 symbols stop at its
+    # lane's end; lane 4100 is the fat shape (pieces of 4096 symbols)
+    sy, ln, tables, _ = (torch.from_numpy(a).to(cuda)
+                         for a in pack_edge_rows(lane, nl, 64))
+    K.reset_launches()
+    w, b = K.lane_pack(sy, ln, tables, lane)
+    assert K.launch_counts()["lane_pack"] == 1
+    pw, pb = K.lane_pack_plain(sy, ln, tables, lane)
+    assert torch.equal(b, pb) and torch.equal(w, pw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", [6, 50, 4098, 4100])
+def test_lane_decode_lanes_off_4(cuda, lane):
+    # lanes that do not divide by 4 (stored a byte a thread), and lanes
+    # over 4096 that do not divide by 128, which the codec sends to
+    # kernel 5 rather than kernel 7
+    nl = 5 if lane < 4096 else 2
+    sy, ln, lt = (torch.from_numpy(a).to(cuda)
+                  for a in lane_edge_rows(lane, nl, 45))
+    buf = pack_lane_rows(sy, ln, lt, lane)
+    K.reset_launches()
+    d = tcan.canonical_decode_batch(
+        buf.view(len(ln), -1), lt, torch.zeros((len(ln), nl),
+                                              dtype=torch.int32, device=cuda),
+        ln, lane=lane, out_len=nl * lane)
+    counts = K.launch_counts()
+    assert counts["lane_decode"] == 1 and counts["lane_decode_lanemajor"] == 0
+    assert torch.equal(d, K.lane_decode_plain(buf, lt, ln, lane, 31))
+    valid = torch.arange(nl * lane, device=cuda)[None, :] < ln[:, None]
+    assert torch.equal(d, torch.where(valid, sy, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_len", [1000, 1003, 8191])
+@pytest.mark.parametrize("use_diff", [False, True])
+def test_rle_expand_out_len_off_16(cuda, use_diff, out_len):
+    s, ln, car = (torch.from_numpy(a).to(cuda)
+                  for a in rle_edge_rows(8192, 46))
+    K.reset_launches()
+    got = K.rle_expand(s, ln, car, out_len, use_diff)
+    assert K.launch_counts()["rle_expand"] == 1
+    assert got.is_contiguous()
+    assert torch.equal(got, K.rle_expand_plain(s, ln, car, out_len,
+                                               use_diff))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_len", [1 << 16, 1 << 25])
+def test_rle_expand_rows_past_2_23(cuda, out_len):
+    # a row of more than 2^23 stream bytes (the kernel's old limit), cut
+    # short of its decoded length and decoded whole
+    rng = np.random.default_rng(47)
+    n = (1 << 23) + 100
+    s = torch.from_numpy(rng.integers(0, 3, (1, n), dtype=np.int64)
+                         .astype(np.uint8)).to(cuda)
+    ln = torch.tensor([n - 7], dtype=torch.int32, device=cuda)
+    car = torch.tensor([5], dtype=torch.uint8, device=cuda)
+    got = K.rle_expand(s, ln, car, out_len, True)
+    assert torch.equal(got, K.rle_expand_plain(s, ln, car, out_len, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_diff", [False, True])
+@pytest.mark.parametrize("name", list(ODD_CONFIGS))
+def test_gpu_odd_configs_equal_cpu_plain_path(cuda, name, use_diff):
+    cfg = CodecConfig(use_diff=use_diff, **ODD_CONFIGS[name])
+    data = odd_config_input(name)
+    gpu, cpu = TorchCodec(cfg), TorchCodec(cfg, device="cpu")
+    K.reset_launches()
+    if cfg.layout == "sharded":
+        blobs = [gpu.encode(data)]
+        assert blobs[0] == cpu.encode(data)
+    else:  # the v3 candidates: encode() would keep the smaller v1 blob
+        blobs = [gpu._encode_global(data, None, w)
+                 for w in gpu.global_candidates(len(data))]
+        assert blobs == [cpu._encode_global(data, None, w)
+                         for w in cpu.global_candidates(len(data))]
+    for blob in blobs:
+        assert gpu.decode(blob) == data
+    counts = K.launch_counts()
+    names = ["histogram256", "lane_pack", "repad_words", "lane_decode"]
+    if cfg.layout == "sharded":
+        names += ["rle_diff_encode", "rle_expand"]
+    assert all(counts[k] for k in names), counts
+
+
+@pytest.mark.cuda
+def test_lanemajor_fat_edge_rows_match_plain(cuda):
+    # lane 32768: random bytes, a fixed 7-bit code, windows with no code,
+    # codes of 20-31 bits across sub-sequence borders, a chain past the
+    # lane's last word, a partial lane; all in one call of the plain
+    # version (its loop runs once per symbol of the lane)
+    from huffman_codec_tpu_torch.edge_cases import fat_lane_rows
+    lane = 32768
+    buf, lt, ln, _, _ = fat_lane_rows(lane, 48, cuda)
+    K.reset_launches()
+    d = K.lane_decode_lanemajor(buf, lt, ln, lane, 31)
+    assert K.launch_counts()["lane_decode_lanemajor"] == 1
+    assert torch.equal(d, K.lane_decode_lanemajor_plain(buf, lt, ln, lane,
+                                                         31))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", range(7))
+def test_lanemajor_fat_edge_rows_match_lane_decode(cuda, row):
+    # each case alone at its own max_len bucket, against kernel 5
+    from huffman_codec_tpu_torch.edge_cases import fat_lane_rows
+    lane = 32768
+    buf, lt, ln, buckets, names = fat_lane_rows(lane, 48, cuda)
+    b, t, n = (a[row:row + 1].clone() for a in (buf, lt, ln))
+    d = K.lane_decode_lanemajor(b, t, n, lane, buckets[row])
+    assert torch.equal(d, K.lane_decode(b, t, n, lane, buckets[row])), \
+        names[row]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,nl,wb", [(1, 112, 6592), (7, 45, 64),
+                                     (3, 45, 37), (256, 172, 64)])
+def test_repad_geometries_match_plain(cuda, C, nl, wb):
+    # the whole-file chunk (one chunk of 112 fat lanes), lane counts that
+    # are not a multiple of 32, a stride that does not divide by 4, and
+    # the sharded step; empty and full lanes among random ones
+    rng = np.random.default_rng(C * nl + wb)
+    lw = rng.integers(0, wb + 1, (C, nl)).astype(np.int32)
+    lw.reshape(-1)[:: 7] = 0
+    lw.reshape(-1)[3:: 11] = wb
+    lw = torch.from_numpy(lw).to(cuda)
+    flat = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, int(lw.sum()))
+                            .astype(np.int32)).to(cuda)
+    K.reset_launches()
+    got = K.repad_words(flat, lw, wb)
+    assert K.launch_counts()["repad_words"] == 1
+    assert torch.equal(got, K.repad_words_plain(flat, lw, wb))
+
+
+@pytest.mark.cuda
+def test_repad_launcher_refuses_short_scratch(cuda):
+    # the scratch holds a status word a block of REPAD_SPAN slots, tagged
+    # with the launch's number; one word short, the launcher launches
+    # nothing. Words of an earlier launch left in it change nothing
+    from huffman_codec_tpu_torch.ops import _build
+    C, nl, wb = 2, 40, 512
+    lw = torch.full((C, nl), wb, dtype=torch.int32, device=cuda)
+    fn = _build.bind("repad", "repad_launch", 4, 6)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    words = K.repad_scratch_words(C, nl, wb)
+    scratch = torch.zeros(words, dtype=torch.int64, device=cuda)
+    for size, ok, epoch, fill in ((words - 1, False, 1, 1), (words, True, 1, 1),
+                                  (words, True, 2, 3), (words, False, 0, 1)):
+        flat = torch.full((C * nl * wb,), fill, dtype=torch.int32,
+                          device=cuda)
+        out = torch.zeros(C * nl * wb, dtype=torch.int32, device=cuda)
+        err = fn(flat.data_ptr(), lw.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr(), size, C, nl, wb, flat.numel(), epoch,
+                 stream)
+        torch.cuda.synchronize()
+        assert (err == 0) == ok
+        assert bool((out == fill).all()) == ok
+
+
+@pytest.mark.cuda
+def test_repad_replayed_in_a_cuda_graph(cuda):
+    # a captured launch replays its launch number: the words of the last
+    # replay must not count in the next one, whatever its inputs
+    C, nl, wb = 64, 45, 64
+    rng = np.random.default_rng(49)
+    lw = torch.zeros((C, nl), dtype=torch.int32, device=cuda)
+    flat = torch.zeros(C * nl * wb, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        K.repad_words(flat, lw, wb)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.repad_words(flat, lw, wb)
+    for _ in range(3):
+        new_lw = torch.from_numpy(rng.integers(0, wb + 1, (C, nl))
+                                  .astype(np.int32)).to(cuda)
+        n = int(new_lw.sum())
+        lw.copy_(new_lw)
+        flat[:n] = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n)
+                                    .astype(np.int32)).to(cuda)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, K.repad_words_plain(flat[:n], lw, wb))
