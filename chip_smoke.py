@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from huffman_codec_tpu_torch/csrc and the host C++
-runtime of the v1 format, and drives three paths.
+runtime of the v1 format, and drives four paths.
 
 The sharded streaming path: holds the six kernels it runs against their
 plain PyTorch versions on the card (one full step of 256 x 64 KiB chunks,
@@ -51,6 +51,25 @@ on and off and both candidates, reads a range across a band border, checks
 containers against the plain path run on the CPU, and times the search,
 the stages of the encode and the decode, and the peak device memory.
 
+FGK entropy (``entropy="fgk"``) in every layout and the device
+``V1Codec``: holds the two FGK kernels against their plain versions (the
+main step's RLE streams, diff on, cut to 2048 symbols, with the FGK edge
+batch of ``huffman_codec_tpu_torch/edge_cases.py``); at the main path's
+shapes, where the plain loop (once a symbol) cannot run, against a second
+oracle: the encoder, for codes past 32 bits and for every chunk of a full
+step with diff and without, against the host runtime's v1 encoder (RLE
+restarts every chunk, so a chunk's stream is the v1 stream of its diffed
+bytes), and the decoder, on the first step's staged word rows of the 64
+MiB round trips, against that step's RLE streams; round-trips a 64 MiB
+sharded input with the diff model on and off, 256 KiB and 2.5 MiB global
+inputs, a sharded-adaptive input of 16 bands and a 5-row tail, and
+``V1Codec`` on 256 KiB in the four pipeline configs (bytes equal to the
+host runtime's, decoded on the device and by the host runtime); checks
+containers against the plain path run on the CPU on small inputs, and
+times the kernels (beside their bound and the latency floor of their
+serial chain, from one dependent shared-memory access measured in the run
+by ``kernel_variants/smem_chase.cu``) and the device encode and decode.
+
 Each path's kernel launches are counted from zero over its round trips.
 The encode kernels (1, 1b and 3), ``repad_words`` (beside its library
 call, one ``masked_scatter_``) and the fat-lane decode kernel are also
@@ -63,11 +82,13 @@ result, when there is no GPU or any phase fails.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1131,7 +1152,7 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
     want = {K.TILE_MODE: 1, "histogram256": n_cands + 1, "lane_pack": 1,
             "repad_words": 1, "lane_decode": 1, "rle_expand": 1,
             "rle_diff_encode": 0, "lane_decode_lanemajor": 0,
-            "group_tile_lens": 0}
+            "group_tile_lens": 0, "fgk_encode": 0, "fgk_decode": 0}
     if launches != want or enc_counts[K.TILE_MODE] != 1:
         raise AssertionError(f"sharded-adaptive launches {launches}, the "
                              f"code path implies {want}")
@@ -1440,11 +1461,400 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
     return launches, row_1b, row_walk
 
 
+# the FGK phase: a chunk's symbols in the plain comparison
+FGK_PLAIN_SYMBOLS = 2048
+# the probe of one dependent shared-memory access, the unit of the FGK
+# kernels' serial chain: a cycle of this many slots, chased this many steps
+# and twice as many
+CHASE_SOURCE = Path(__file__).resolve().parent / "kernel_variants" / \
+    "smem_chase.cu"
+CHASE_SLOTS = 1024
+CHASE_STEPS = 1 << 20
+
+
+def start_chase_build(_build):
+    """Start nvcc on the shared-memory probe beside the kernels' build;
+    returns (process, library path)."""
+    out = _build.BUILD_DIR / "probe" / "smem_chase.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
+           str(CHASE_SOURCE)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+def shared_access(build) -> dict:
+    """One dependent shared-memory access on this card, measured: a thread
+    chases a random cycle of ``CHASE_SLOTS`` slots ``CHASE_STEPS`` and
+    twice as many steps; the time difference over the extra steps (CUDA
+    events) is an access's ns, clock64 over the longer chase its cycles."""
+    proc, out = build
+    text, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"smem_chase.cu did not build:\n{text}")
+    fn = ctypes.CDLL(str(out)).smem_chase_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    order = np.random.default_rng(SEED).permutation(CHASE_SLOTS)
+    nxt = np.empty(CHASE_SLOTS, np.int32)
+    nxt[order] = np.roll(order, -1)
+    nxt_d = torch.from_numpy(nxt).cuda()
+    res = torch.zeros(2, dtype=torch.int64, device="cuda")
+
+    def run(steps):
+        err = fn(nxt_d.data_ptr(), res.data_ptr(), CHASE_SLOTS, steps,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"smem_chase launch failed: cudaError {err}")
+    t1 = cuda_ms(lambda: run(CHASE_STEPS), reps=3, warm=1)
+    t2 = cuda_ms(lambda: run(2 * CHASE_STEPS), reps=3, warm=1)
+    torch.cuda.synchronize()
+    cycles = int(res[0]) / (2 * CHASE_STEPS)
+    ns = (t2 - t1) * 1e6 / CHASE_STEPS
+    log(f"one dependent shared-memory access: {ns:.3f} ns, {cycles:.2f} "
+        f"SM cycles (a {CHASE_SLOTS}-slot cycle chased {CHASE_STEPS} and "
+        f"{2 * CHASE_STEPS} steps: {t1:.3f} / {t2:.3f} ms)")
+    return {"ns": ns, "cycles": cycles}
+
+
+def fgk_ops(bits: int) -> int:
+    """Integer operations FGK coding needs for ``bits`` code bits, counted
+    as a serial coder does them: a code bit is one tree level, which costs
+    the code climb's parent load, edge compare and bit store (3) and the
+    update's level there: the successor lookup's compare, the swap test,
+    the weight increment and the parent load (4); a symbol's own costs
+    (the stage load and its end test) are at most one more a bit."""
+    return 8 * bits
+
+
+def fgk_bound(nbytes: int, bits: int, max_bits: int, access: dict) -> dict:
+    """The bound of an FGK kernel call and its chain's latency floor: the
+    longest chunk's levels (about its code bits, climbed twice: the code
+    and the update) times one dependent shared-memory access as
+    ``shared_access`` measured it."""
+    bound, by = bound_of(nbytes, fgk_ops(bits))
+    floor = 2 * max_bits * access["ns"] * 1e-6
+    return {"bound_ms": bound, "bound_by": by, "latency_floor_ms": floor,
+            "shared_access_ns": access["ns"],
+            "shared_access_cycles": access["cycles"],
+            "binds": "latency floor" if floor > bound else by}
+
+
+def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access):
+    """FGK entropy in every layout and the device V1Codec: the two FGK
+    kernels against their plain versions and a second oracle (the host
+    runtime's v1 encoder), counted round trips, containers against the CPU
+    plain path, timings. Returns (the launch counts of the sharded FGK
+    round trips, the kernels' rows)."""
+    from huffman_codec_tpu_torch.edge_cases import fgk_deep_row, fgk_edge_rows
+    from huffman_codec_tpu_torch.models.chunked import (
+        _dense_payload, _encode_sharded_stage)
+    from huffman_codec_tpu_torch.native import runtime
+    from huffman_codec_tpu_torch.ops.fgk import n_words_for
+    from huffman_codec_tpu_torch.ops.pack import chunk_bytes
+    from huffman_codec_tpu_torch.ops.rle import rle_max_encoded_len
+
+    dev = torch.device("cuda")
+    cap = rle_max_encoded_len(CS)
+    n_in = x.size
+    step = torch.from_numpy(x[: STEP * CS].copy()).to(dev).view(STEP, CS)
+    full = torch.full((STEP,), CS, dtype=torch.int32, device=dev)
+    car = torch.cat([torch.zeros(1, dtype=torch.uint8, device=dev),
+                     step[:-1, -1]])
+
+    # -- kernels against their plain versions: the step's RLE streams (diff
+    #    on) cut to 2048 symbols, and the edge batch, in one call ----------
+    W = 2100
+    st, rl = K.rle_diff_encode(step, full, car, True, cap)
+    ex, el = (torch.from_numpy(a).to(dev) for a in fgk_edge_rows(W, 71))
+    rows = torch.cat([st[:, :W], ex]).contiguous()
+    lens = torch.cat([rl.clamp(max=FGK_PLAIN_SYMBOLS), el]).to(torch.int32)
+    nw = n_words_for(W)
+    w, b = K.fgk_encode(rows, lens, nw)
+    t = time.perf_counter()
+    pw, pb = K.fgk_encode_plain(rows, lens, nw)
+    torch.cuda.synchronize()
+    plain_enc_ms = (time.perf_counter() - t) * 1e3
+    same("fgk_encode.bits", b, pb, errs)
+    same("fgk_encode.words", w, pw, errs)
+    d = K.fgk_decode(w, lens, W)
+    t = time.perf_counter()
+    pd = K.fgk_decode_plain(w, lens, W)
+    torch.cuda.synchronize()
+    plain_dec_ms = (time.perf_counter() - t) * 1e3
+    same("fgk_decode", d, pd, errs)
+    valid = torch.arange(W, device=dev)[None, :] < lens[:, None]
+    same("fgk_decode.round_trip", d, torch.where(valid, rows, 0), errs)
+    red_enc_ms = cuda_ms(lambda: K.fgk_encode(rows, lens, nw), reps=3,
+                         warm=1)
+    red_dec_ms = cuda_ms(lambda: K.fgk_decode(w, lens, W), reps=3, warm=1)
+    log(f"fgk kernels vs plain on {STEP} RLE streams (diff on) cut to "
+        f"{FGK_PLAIN_SYMBOLS} symbols and {len(el)} edge rows: equal "
+        f"(plain encode {plain_enc_ms:.0f} ms, decode {plain_dec_ms:.0f} ms; "
+        f"kernels {red_enc_ms:.3f} / {red_dec_ms:.3f} ms)")
+    # codes past 32 bits: the deep row against the host runtime's v1
+    deep = fgk_deep_row(72)
+    dx = torch.from_numpy(deep).to(dev)[None, :]
+    dl = torch.tensor([deep.size], dtype=torch.int32, device=dev)
+    dw, db = K.fgk_encode(dx, dl, n_words_for(deep.size))
+    v1 = runtime.v1_compress(deep.tobytes())
+    same("fgk_encode.deep_vs_v1", chunk_bytes(dw, db).cpu(),
+         torch.frombuffer(bytearray(v1[9:]), dtype=torch.uint8), errs)
+    same("fgk_decode.deep", K.fgk_decode(dw, dl, deep.size), dx, errs)
+    log(f"fgk deep row ({deep.size} symbols, fresh codes of 33 bits): "
+        "kernel stream == host runtime's v1 body, decodes exactly")
+    del rows, w, pw, d, pd, st
+
+    # -- a full step against the host runtime's v1 encoder, diff off and on.
+    #    RLE restarts every chunk, so a chunk's FGK stream is the v1 body of
+    #    its bytes (with diff: its diffed bytes, the carry applied, coded
+    #    with the v1 diff flag off), and its rle_len that blob's count ----
+    flat = step.reshape(-1)
+    xs = x[: STEP * CS]
+    dxs = xs.copy()
+    dxs[1:] -= xs[:-1]  # uint8 wraps; chunk c's carry is chunk c - 1's end
+
+    def v1_oracle(src):
+        body, counts = [], []
+        for c in range(STEP):
+            v1 = runtime.v1_compress(src[c * CS:(c + 1) * CS].tobytes())
+            body.append(v1[9:])
+            counts.append(int.from_bytes(v1[:8], "little"))
+        return (torch.frombuffer(bytearray(b"".join(body)), dtype=torch.uint8),
+                torch.tensor(counts, dtype=torch.int32))
+
+    words, bits, _, rl0, _ = _encode_sharded_stage(
+        flat, STEP * CS, 0, False, CS, STEP, LANE, "fgk")
+    want_pay, want_rl = v1_oracle(xs)
+    same("fgk_encode.full_step_vs_v1", _dense_payload(words, bits, "fgk")
+         .cpu(), want_pay, errs)
+    same("fgk_encode.full_step_rle_len_vs_v1", rl0.cpu(), want_rl, errs)
+    st0, rls = K.rle_diff_encode(step, full, car, True, cap)
+    n_words = n_words_for(cap)
+    enc_ms = cuda_ms(lambda: K.fgk_encode(st0, rls, n_words), reps=3, warm=1)
+    fw, fb = K.fgk_encode(st0, rls, n_words)
+    want_pay, want_rl = v1_oracle(dxs)
+    same("fgk_encode.full_step_diff_vs_v1", chunk_bytes(fw, fb).cpu(),
+         want_pay, errs)
+    same("fgk_encode.full_step_diff_rle_len_vs_v1", rls.cpu(), want_rl, errs)
+    sum_bits, max_bits = int(fb.sum()), int(fb.max())
+    sum_rl = int(rls.sum())
+    enc_bound = fgk_bound(sum_rl + 4 * STEP + 4 * STEP * n_words + 4 * STEP,
+                          sum_bits, max_bits, access)
+    # the plain loop runs once a symbol of the longest row for the whole
+    # batch: its time at the full step, from the reduced run's rate
+    plain_full_s = (plain_enc_ms + plain_dec_ms) / int(lens.max()) * \
+        int(rls.max()) / 1e3
+    log(f"fgk full step ({STEP} x {CS} B), diff off and on: every chunk's "
+        f"stream and rle_len == the host runtime's v1_compress of its "
+        f"(diffed) bytes; fgk_encode {enc_ms:.3f} ms a step (diff on, "
+        f"{sum_rl} symbols, {sum_bits} bits), bound "
+        f"{enc_bound['bound_ms']:.4f} ms by {enc_bound['bound_by']}, latency "
+        f"floor {enc_bound['latency_floor_ms']:.3f} ms ({max_bits} bits in "
+        f"the longest chunk); the plain loop would take about "
+        f"{plain_full_s:.0f} s for one encode and decode of it "
+        f"({int(rls.max())} symbols in the longest chunk)")
+    # the same step without diff: about 2.6 times the code bits, so the two
+    # times split a tree level's cost from a symbol's
+    st1, rl1 = K.rle_diff_encode(step, full, car, False, cap)
+    off_ms = cuda_ms(lambda: K.fgk_encode(st1, rl1, n_words), reps=3, warm=1)
+    off_bits = int(K.fgk_encode(st1, rl1, n_words)[1].sum())
+    log(f"fgk_encode without diff {off_ms:.3f} ms a step ({int(rl1.sum())} "
+        f"symbols, {off_bits} bits)")
+    # the decoder's oracle at the main path's shapes: the step's RLE streams
+    valid = torch.arange(cap, device=dev)[None, :]
+    streams = {False: torch.where(valid < rl1[:, None], st1, 0),
+               True: torch.where(valid < rls[:, None], st0, 0)}
+    del fw, st0, st1, words, flat, valid
+
+    # -- counted round trips: sharded FGK at 64 MiB, diff off and on --------
+    n_rt = n_in if enc_ms < 10_000 else STEP * CS
+    data = x[:n_rt].tobytes()
+    cfgs = {d: CodecConfig(use_diff=d, chunk_size=CS, lane=LANE,
+                           layout="sharded", step_chunks=STEP,
+                           entropy="fgk") for d in (False, True)}
+    blobs, times = {}, {}
+    K.reset_launches()
+    for dd, cfg in cfgs.items():
+        codec = TorchCodec(cfg)
+        t = time.perf_counter()
+        blobs[dd] = codec.encode(data)
+        e2e_enc = time.perf_counter() - t
+        t = time.perf_counter()
+        if codec.decode(blobs[dd]) != data:
+            raise AssertionError(f"fgk sharded round trip failed (diff={dd})")
+        times[dd] = (e2e_enc, time.perf_counter() - t)
+    launches = K.launch_counts()
+    log(f"fgk sharded launches (two {n_rt} B round trips):", launches)
+    for name in ("fgk_encode", "fgk_decode", "rle_diff_encode",
+                 "rle_expand"):
+        if not launches[name]:
+            raise AssertionError(f"{name} was never launched on the sharded "
+                                 f"FGK path: {launches}")
+    for dd, blob in blobs.items():
+        log(f"fgk sharded {n_rt} B diff={dd}: {len(blob)} B, "
+            f"{8 * len(blob) / n_rt:.4f} bpc, round trip exact, crc ok; end "
+            f"to end encode {times[dd][0]:.3f} s, decode {times[dd][1]:.3f} s")
+
+    # -- device throughput, inputs resident; the decode kernel's time --------
+    xd = torch.from_numpy(x[:n_rt].copy()).to(dev)
+    codec = TorchCodec(cfgs[True])
+
+    def enc():
+        outs = []
+        for k in range(n_rt // (STEP * CS)):
+            seg = xd[k * STEP * CS:(k + 1) * STEP * CS]
+            carry = int(x[k * STEP * CS - 1]) if k else 0
+            a, meta, _, _, _ = _encode_sharded_stage(
+                seg, STEP * CS, carry, True, CS, STEP, LANE, "fgk")
+            outs.append(_dense_payload(a, meta, "fgk"))
+        return outs
+    dev_enc_ms = median_ms(enc, reps=3)
+    hdr, staged = codec.stage_decode_steps(blobs[True])
+    torch.cuda.synchronize()
+    dev_dec_ms = median_ms(lambda: codec.run_decode_steps(hdr, staged),
+                           reps=3)
+    s0 = staged[0]
+    dec_ms = cuda_ms(lambda: K.fgk_decode(s0["words"], s0["rl"], cap),
+                     reps=3, warm=1)
+    dbits = hdr["chunk_bits"][:STEP]
+    dec_bound = fgk_bound(s0["words"].numel() * 4 + 4 * STEP + STEP * cap,
+                          int(sum(dbits)), int(max(dbits)), access)
+    # the decoder at the main path's shapes (the first step's staged word
+    # rows) against the step's RLE streams, diff on and off
+    same("fgk_decode.full_step_diff",
+         K.fgk_decode(s0["words"], s0["rl"], cap), streams[True], errs)
+    s_off = TorchCodec(cfgs[False]).stage_decode_steps(blobs[False])[1][0]
+    same("fgk_decode.full_step", K.fgk_decode(s_off["words"], s_off["rl"],
+                                              cap), streams[False], errs)
+    log(f"fgk_decode at the main path's shapes (words "
+        f"{tuple(s0['words'].shape)} and {tuple(s_off['words'].shape)}): "
+        "== the step's RLE streams, diff on and off")
+    log(f"fgk device diff=True: encode {n_rt / dev_enc_ms / 1e3:.2f} MB/s "
+        f"({dev_enc_ms:.1f} ms / {n_rt} B), decode "
+        f"{n_rt / dev_dec_ms / 1e3:.2f} MB/s ({dev_dec_ms:.1f} ms); "
+        f"fgk_decode {dec_ms:.3f} ms a step (words {tuple(s0['words'].shape)}"
+        f"), bound {dec_bound['bound_ms']:.4f} ms by {dec_bound['bound_by']}, "
+        f"latency floor {dec_bound['latency_floor_ms']:.3f} ms")
+    del xd, staged, s0, s_off, streams
+
+    # -- global FGK at 256 KiB and 2.5 MiB; sharded-adaptive FGK on 16 bands
+    #    and a 5-row tail ---------------------------------------------------
+    K.reset_launches()
+    for n, dd in ((1 << 18, True), (5 << 19, True), (5 << 19, False)):
+        gdata = x[:n].tobytes()
+        gc = TorchCodec(CodecConfig(use_diff=dd, entropy="fgk"))
+        t = time.perf_counter()
+        blob = gc.encode(gdata)
+        e2e = time.perf_counter() - t
+        v3 = blob if blob[:6] == b"HCTPU\x03" else gc._encode_global(
+            gdata, None, False)
+        for bl in {blob, v3}:
+            if gc.decode(bl) != gdata:
+                raise AssertionError(f"fgk global round trip failed ({n} B)")
+        log(f"fgk global {n} B diff={dd}: encode() kept "
+            f"{'v3' if blob == v3 else 'v1'} ({len(blob)} B; v3 {len(v3)} B, "
+            f"{gc._parse(v3)['n_chunks']} chunks), round trips exact; end to "
+            f"end encode {e2e:.3f} s")
+    acfg = CodecConfig(use_adapt=True, use_diff=True, width=ADAPT_W,
+                       chunk_size=CS, layout="sharded", entropy="fgk")
+    n_tail = 16 * CS + 5 * ADAPT_W
+    tail = x[:n_tail].tobytes()
+    ac = TorchCodec(acfg)
+    ablob = ac.encode(tail)
+    if ac.decode(ablob) != tail:
+        raise AssertionError("fgk sharded-adaptive round trip failed")
+    if ac.decode_range(ablob, 15 * CS + 100, CS + 2000) != \
+            tail[15 * CS + 100:16 * CS + 2100]:
+        raise AssertionError("fgk sharded-adaptive decode_range differs")
+    glaunches = K.launch_counts()
+    if not (glaunches["fgk_encode"] and glaunches["fgk_decode"]):
+        raise AssertionError(f"fgk kernels not launched on the global and "
+                             f"adaptive paths: {glaunches}")
+    log(f"fgk sharded adaptive {n_tail} B (16 bands + a 5-row tail): "
+        f"{len(ablob)} B, round trip and a range across a band border "
+        f"exact; global and adaptive launches {glaunches}")
+
+    # -- V1Codec on 256 KiB in the four pipeline configs --------------------
+    vdata = x[: 1 << 18].tobytes()
+    K.reset_launches()
+    for dd, aa in ((False, False), (True, False), (False, True),
+                   (True, True)):
+        vc = V1Codec(CodecConfig(use_diff=dd, use_adapt=aa, width=ADAPT_W))
+        t = time.perf_counter()
+        vb = vc.encode(vdata)
+        e2e = time.perf_counter() - t
+        if vb != runtime.v1_compress(vdata, dd, aa, ADAPT_W):
+            raise AssertionError(f"V1Codec differs from the host runtime "
+                                 f"(diff={dd}, adapt={aa})")
+        t = time.perf_counter()
+        got = vc.decode(vb)
+        dev_dec = time.perf_counter() - t
+        t = time.perf_counter()
+        host = runtime.v1_decompress(vb)
+        host_dec = time.perf_counter() - t
+        if got != vdata or host != vdata:
+            raise AssertionError(f"V1Codec round trip failed (diff={dd}, "
+                                 f"adapt={aa})")
+        log(f"V1Codec 256 KiB diff={dd} adapt={aa}: {len(vb)} B == host "
+            f"runtime's v1_compress, device decode exact; end to end encode "
+            f"{e2e:.3f} s, decode {dev_dec:.3f} s (the host runtime's "
+            f"v1_decompress, the oracle: {host_dec:.3f} s)")
+    vl = K.launch_counts()
+    if not (vl["fgk_encode"] and vl["fgk_decode"]
+            and vl["group_tile_lens"]):
+        raise AssertionError(f"V1Codec did not launch its kernels: {vl}")
+
+    # -- containers equal the CPU plain path on small inputs ----------------
+    small = {
+        "sharded": (CodecConfig(layout="sharded", chunk_size=2048,
+                                use_diff=True, entropy="fgk"), x[:6000]),
+        "global": (CodecConfig(chunk_size=2048, use_diff=True,
+                               entropy="fgk"), x[:6000]),
+        "sharded-adapt": (CodecConfig(use_adapt=True, width=64,
+                                      chunk_size=1024, layout="sharded",
+                                      entropy="fgk"), x[:64 * 80]),
+    }
+    for name, (cfg, arr) in small.items():
+        sd = arr.tobytes()
+        gpu, cpu = TorchCodec(cfg), TorchCodec(cfg, device="cpu")
+        if cfg.layout == "global":
+            g, c = (k._encode_global(sd, None, False) for k in (gpu, cpu))
+        else:
+            g, c = gpu.encode(sd), cpu.encode(sd)
+        if g != c or gpu.decode(c) != sd:
+            raise AssertionError(f"fgk {name}: GPU container differs from "
+                                 "the CPU plain path")
+    log("fgk containers (sharded, global, sharded adaptive) on small "
+        "inputs: GPU == CPU plain path")
+
+    rows_out = [
+        {"name": "fgk_encode", "route": "cuda",
+         "source": "huffman_codec_tpu_torch/csrc/fgk.cu",
+         "replaces": "huffman_codec_tpu/ops/fgk.py:239 (an XLA scan)",
+         "launches": launches["fgk_encode"], "ms": enc_ms,
+         "plain_ms": plain_enc_ms, "library_ms": None,
+         "plain_and_reduced_at": f"{STEP} chunks of {FGK_PLAIN_SYMBOLS} "
+                                 f"symbols and {len(el)} edge rows",
+         "reduced_ms": red_enc_ms, "no_diff_ms": off_ms, **enc_bound},
+        {"name": "fgk_decode", "route": "cuda",
+         "source": "huffman_codec_tpu_torch/csrc/fgk.cu",
+         "replaces": "huffman_codec_tpu/ops/fgk.py:305 (an XLA scan)",
+         "launches": launches["fgk_decode"], "ms": dec_ms,
+         "plain_ms": plain_dec_ms, "library_ms": None,
+         "plain_and_reduced_at": f"{STEP} chunks of {FGK_PLAIN_SYMBOLS} "
+                                 f"symbols and {len(el)} edge rows",
+         "reduced_ms": red_dec_ms, **dec_bound},
+    ]
+    return launches, rows_out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from huffman_codec_tpu_torch import CodecConfig, TorchCodec
+    from huffman_codec_tpu_torch import CodecConfig, TorchCodec, V1Codec
     from huffman_codec_tpu_torch.models.chunked import (
         _encode_sharded_stage, _strip_payload)
     from huffman_codec_tpu_torch.native import runtime as native_runtime
@@ -1466,8 +1876,10 @@ def main() -> int:
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
+    chase_build = start_chase_build(_build)  # alongside the kernels' nvcc
     built = _build.build_all()
     log(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
+    access = shared_access(chase_build)
     t0 = time.perf_counter()
     log(f"build: host runtime {native_runtime.build().name} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1517,7 +1929,8 @@ def main() -> int:
     log("main path launches (two 64 MiB round trips):", launches)
     sharded_kernels = [k.__name__ for k in K.KERNELS
                        if k not in (K.lane_decode_lanemajor,
-                                    K.group_tile_lens)]
+                                    K.group_tile_lens, K.fgk_encode,
+                                    K.fgk_decode)]
     if not all(launches[k] for k in sharded_kernels):
         raise AssertionError(f"a kernel was never launched: {launches}")
     for d, b in blobs.items():
@@ -1723,6 +2136,11 @@ def main() -> int:
     for row in rows:
         row["launches_adaptive"] = alaunches[row["name"]]
     rows += [row_1b, row_walk]
+    flaunches, fgk_rows = fgk_path(K, TorchCodec, V1Codec, CodecConfig, x,
+                                   errs, access)
+    for row in rows:
+        row["launches_fgk"] = flaunches[row["name"]]
+    rows += fgk_rows
     for row in rows:  # the later phases' comparisons count as well
         row["max_abs_err"] = max(v for k, v in errs.items()
                                  if k.split(".")[0] == row["name"])

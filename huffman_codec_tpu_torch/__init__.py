@@ -12,5 +12,7 @@ from huffman_codec_tpu_torch.models.chunked import (
     TorchCodec,
     config_from_fields,
 )
+from huffman_codec_tpu_torch.models.reference import V1Codec
 
-__all__ = ["CodecConfig", "MAIN_PATH", "TorchCodec", "config_from_fields"]
+__all__ = ["CodecConfig", "MAIN_PATH", "TorchCodec", "V1Codec",
+           "config_from_fields"]

@@ -374,3 +374,80 @@ def odd_config_input(name: str, n: int = 5000) -> bytes:
             np.uint8).tobytes()
     return ((((i // 100) * 3 + (i % 100) * 2) // 5
              + rng.integers(-2, 3, n)) & 255).astype(np.uint8).tobytes()
+
+
+def _no_three_runs(counts: np.ndarray, rng) -> np.ndarray:
+    """Symbol i repeated counts[i] times, in an order with no three equal
+    bytes in a row (so MNP-5 leaves it as it is): the symbols sorted by
+    count, the first half of the sequence at even positions and the second
+    at odd ones; no symbol may hold more than half of it."""
+    order = np.argsort(-counts, kind="stable")
+    seq = np.repeat(order, counts[order])
+    out = np.empty_like(seq)
+    half = -(-seq.size // 2)
+    out[0::2], out[1::2] = seq[:half], seq[half:]
+    return out.astype(np.uint8)
+
+
+def _fibonacci(k: int) -> np.ndarray:
+    f = [1, 1]
+    while len(f) < k:
+        f.append(f[-1] + f[-2])
+    return np.array(f[:k], np.int64)
+
+
+def fgk_edge_rows(n: int, seed: int):
+    """Rows for the FGK kernels, width ``n`` (n >= 2100): (chunks (R, n)
+    uint8, lengths (R,) int32).
+
+    * lengths 0, 1 and 2;
+    * all 256 symbols in order then random bytes, and 255 .. 0 twice
+      (a fresh symbol every step, the NYT node deep);
+    * a run-heavy MNP-5 stream (runs of three literals and a count byte
+      over a few values) and a row of one symbol;
+    * lengths 31, 32, 33, 1023, 1024, 1025, 2047, 2048, 2049 and n on a
+      skewed alphabet (off every word and the kernels' 1024-symbol
+      stage);
+    * counts in Fibonacci proportion, the deepest tree for the length
+      (codes of about 16 bits), with no three equal bytes in a row.
+
+    Codes past 32 bits need about 2^17 symbols: ``fgk_deep_row``."""
+    if n < 2100:
+        raise ValueError("fgk_edge_rows needs n >= 2100")
+    rng = np.random.default_rng(seed)
+    rows, lens = [], []
+
+    def add(row, m):
+        r = np.zeros(n, np.uint8)
+        r[: len(row)] = row[:n]
+        rows.append(r)
+        lens.append(m)
+
+    add(rng.integers(0, N_SYM, n, dtype=np.int64), 0)
+    add(np.array([200]), 1)
+    add(np.array([7, 9]), 2)
+    add(np.r_[np.arange(N_SYM), rng.integers(0, N_SYM, n - N_SYM)], n)
+    add(np.r_[np.arange(N_SYM)[::-1], np.arange(N_SYM)[::-1]], 2 * N_SYM)
+    runs = []
+    while len(runs) < n:  # three literals and a count byte, repeated
+        v = int(rng.integers(0, 4))
+        runs += [v, v, v, int(rng.integers(0, N_SYM))]
+    add(np.array(runs), n)
+    add(np.full(n, 42), n)
+    skew = rng.geometric(0.3, n).clip(max=N_SYM) - 1
+    for m in (31, 32, 33, 1023, 1024, 1025, 2047, 2048, 2049, n):
+        add(skew[rng.permutation(n)], m)
+    fib = _fibonacci(14)  # 986 symbols in all
+    add(_no_three_runs(fib, rng), int(fib.sum()))
+    return np.stack(rows), np.array(lens, np.int32)
+
+
+def fgk_deep_row(seed: int) -> np.ndarray:
+    """A stream whose fresh symbols take codes of more than 32 bits (the
+    high word of the encoder's code): 25 symbols in Fibonacci counts
+    (196,417 bytes) put the NYT node 25 levels deep, and five fresh symbols
+    follow (25 + 8 raw bits each). No three equal bytes in a row, so MNP-5
+    leaves it as it is and its v1 encoding is its FGK stream."""
+    rng = np.random.default_rng(seed)
+    body = _no_three_runs(_fibonacci(25), rng)
+    return np.r_[body, np.arange(200, 205, dtype=np.uint8)]

@@ -1,6 +1,6 @@
-"""Wire constants of the v3 container and what ``decode()`` needs to tell
-a v1 or v2 blob apart, kept here so the port depends on nothing of the JAX
-package (values from huffman_codec_tpu/formats.py and
+"""Wire constants of the v3 container, what ``decode()`` needs to tell a
+v1 or v2 blob apart and the v1 headers, kept here so the port depends on
+nothing of the JAX package (values from huffman_codec_tpu/formats.py and
 huffman_codec_tpu/models/chunked.py).
 
 v1 is the reference-compatible format,
@@ -32,9 +32,39 @@ def is_v2(data: bytes) -> bool:
     return data[: len(V2_MAGIC)] == V2_MAGIC
 
 
+def make_huff_header(byte_count: int, use_diff: bool,
+                     use_adapt: bool) -> bytes:
+    """The v1 header: byteCount u64 LE, then the flags byte."""
+    flags = (FLAG_DIFF if use_diff else 0) | (FLAG_ADAPT if use_adapt else 0)
+    return struct.pack("<QB", byte_count, flags)
+
+
 def parse_huff_header(header: bytes) -> tuple[int, bool, bool]:
     """v1 header -> (byteCount, diff used, adaptive RLE used)."""
     if len(header) < HUFF_HEADER_BYTES:
         raise ValueError("invalid or missing Huffman coding header")
     byte_count, flags = struct.unpack("<QB", header[:HUFF_HEADER_BYTES])
     return byte_count, bool(flags & FLAG_DIFF), bool(flags & FLAG_ADAPT)
+
+
+def block_count(width: int, height: int, block_size: int) -> int:
+    """Tiles of a width x height matrix at block size ``block_size``."""
+    return -(-width // block_size) * -(-height // block_size)
+
+
+def parse_adapt_rle_header(data: bytes):
+    """The v1 adaptive header at the start of a decoded stream,
+    ``[W u64 BE][H u64 BE][bs u64 BE][a direction bit a tile, MSB-first]``
+    -> (W, H, bs, dirs (list of bool), header bytes)."""
+    if len(data) < 24:
+        raise ValueError("invalid or missing adaptive block RLE header")
+    width, height, block_size = struct.unpack(">QQQ", data[:24])
+    if block_size == 0:
+        raise ValueError("invalid adaptive block RLE header")
+    n_blocks = block_count(width, height, block_size)
+    n_dir_bytes = (n_blocks + 7) // 8
+    if len(data) < 24 + n_dir_bytes:
+        raise ValueError("invalid adaptive block RLE header")
+    dirs = [bool((data[24 + i // 8] >> (7 - i % 8)) & 1)
+            for i in range(n_blocks)]
+    return width, height, block_size, dirs, 24 + n_dir_bytes

@@ -57,8 +57,12 @@ geometry (the shorter tail band) goes through the torch-op tile encode.
 Decode cuts every tile's stream out as a row, decodes the rows (the MNP-5
 decode kernel) and puts the tiles back.
 
-Supported: ``entropy="canonical"`` in both layouts, stream or adaptive;
-``entropy="fgk"`` raises NotImplementedError.
+FGK entropy (``entropy="fgk"``) replaces the canonical stage in every
+layout: each chunk's symbols are coded with an adaptive Huffman tree of
+its own (the FGK kernels, a warp a chunk), and the container keeps each
+chunk's stream byte-aligned with its bit count in the manifest, no tables
+and no lanes. The global layout then has one candidate, ``chunk_size``
+chunks at the configured lane, still raced against v1.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ import torch
 from huffman_codec_tpu_torch.formats import (
     ENTROPY,
     ENTROPY_CANONICAL,
+    ENTROPY_FGK,
     FLAG_ADAPT,
     FLAG_AGROUP,
     FLAG_DIFF,
@@ -101,7 +106,9 @@ from huffman_codec_tpu_torch.ops.canonical import (
     canonical_encode_batch,
 )
 from huffman_codec_tpu_torch.ops.diff import diff_apply, diff_revert
+from huffman_codec_tpu_torch.ops.fgk import n_words_for
 from huffman_codec_tpu_torch.ops.kernels import lane_words_cap
+from huffman_codec_tpu_torch.ops.pack import chunk_bytes, chunk_words
 from huffman_codec_tpu_torch.ops.rle import (
     rle_decode,
     rle_encode,
@@ -185,19 +192,52 @@ def _strip_payload(buf: torch.Tensor, lw: torch.Tensor) -> torch.Tensor:
 
 
 def _words_to_wire(words: torch.Tensor) -> bytes:
-    """int32 words (u32 bits) -> big-endian wire bytes."""
+    """int32 words (u32 bits) -> big-endian wire bytes; uint8 payload bytes
+    as they are."""
+    if words.dtype == torch.uint8:
+        return words.cpu().numpy().tobytes()
     return words.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+
+
+def _entropy_encode(chunks: torch.Tensor, lens: torch.Tensor, entropy: str,
+                    lane: int):
+    """Chunk rows (C, L) uint8 -> (a, meta, tables) on the device:
+    canonical -> (lane_buf (C, n_lanes, W), lane_words (C, n_lanes),
+    tables); fgk -> (words (C, n_words), bits (C,), None)."""
+    if entropy == "canonical":
+        return canonical_encode_batch(chunks, lens, lane=lane)
+    words, bits = kernels.fgk_encode(chunks, lens,
+                                     n_words_for(chunks.shape[1]))
+    return words, bits, None
+
+
+def _dense_payload(a: torch.Tensor, meta: torch.Tensor,
+                   entropy: str) -> torch.Tensor:
+    """The wire payload of ``_entropy_encode``'s outputs on the device:
+    the used lane words (int32) of canonical lane buffers, or each FGK
+    chunk's byte-aligned stream (uint8)."""
+    if entropy == "canonical":
+        return _strip_payload(a, meta)
+    return chunk_bytes(a, meta)
+
+
+def _chunk_bits(meta: np.ndarray, entropy: str) -> list:
+    """Per-chunk stream bits from the lane words (canonical) or the FGK
+    bit counts."""
+    if entropy == "canonical":
+        return (meta.sum(axis=1, dtype=np.int64) * 32).tolist()
+    return meta.astype(np.int64).tolist()
 
 
 def _encode_sharded_stage(data: torch.Tensor, length: int, carry0: int,
                           use_diff: bool, chunk_size: int, n_chunks: int,
-                          lane: int):
-    """Per-chunk diff (with carry) -> per-chunk RLE -> canonical entropy.
+                          lane: int, entropy: str = "canonical"):
+    """Per-chunk diff (with carry) -> per-chunk RLE -> entropy coding.
 
     ``data`` is (n_chunks * chunk_size,) uint8 on the device, of which the
     first ``length`` bytes are input; ``carry0`` is the input byte before
-    it (0 at the stream start). Returns (lane_buf, lane_words, tables,
-    rle_lens, carries) on the device."""
+    it (0 at the stream start). Returns ``_entropy_encode``'s (a, meta,
+    tables), then (rle_lens, carries), on the device."""
     dev = data.device
     chunks = data.view(n_chunks, chunk_size)
     starts = torch.arange(n_chunks, device=dev, dtype=torch.int64) * chunk_size
@@ -206,12 +246,11 @@ def _encode_sharded_stage(data: torch.Tensor, length: int, carry0: int,
     # chunks after a partial tail have in_lens 0 and encode nothing
     carries = torch.cat([torch.tensor([carry0], dtype=torch.uint8, device=dev),
                          chunks[:-1, -1]])
-    cap = _sharded_cap(chunk_size, "canonical", lane)
+    cap = _sharded_cap(chunk_size, entropy, lane)
     streams, rle_lens = kernels.rle_diff_encode(chunks, in_lens, carries,
                                                 use_diff, cap)
-    buf, lane_words, tables = canonical_encode_batch(streams, rle_lens,
-                                                     lane=lane)
-    return buf, lane_words, tables, rle_lens, carries
+    return (*_entropy_encode(streams, rle_lens, entropy, lane), rle_lens,
+            carries)
 
 
 def _chunkify(stream: torch.Tensor, total: torch.Tensor, chunk_size: int,
@@ -224,32 +263,33 @@ def _chunkify(stream: torch.Tensor, total: torch.Tensor, chunk_size: int,
 
 
 def _encode_stream_stage(data: torch.Tensor, use_diff: bool, chunk_size: int,
-                         max_chunks: int, lane: int):
+                         max_chunks: int, lane: int, entropy: str):
     """Whole-input diff -> whole-input RLE (one stream, no carries) ->
-    chunked canonical entropy. ``data`` is (n,) uint8 on the device.
-    Returns (lane_buf, lane_words, tables, total) on the device."""
+    chunked entropy coding. ``data`` is (n,) uint8 on the device. Returns
+    ``_entropy_encode``'s (a, meta, tables) and the stream length, on the
+    device."""
     x = diff_apply(data) if use_diff else data
     n = torch.tensor([x.shape[0]], dtype=torch.int32, device=x.device)
     stream, total = rle_encode(x[None, :], n, max_chunks * chunk_size)
     chunks, lens = _chunkify(stream[0], total[0], chunk_size, max_chunks)
-    buf, lane_words, tables = canonical_encode_batch(chunks, lens, lane=lane)
-    return buf, lane_words, tables, total[0]
+    return (*_entropy_encode(chunks, lens, entropy, lane), total[0])
 
 
 def _encode_adapt_stage(data: torch.Tensor, use_diff: bool, width: int,
                         height: int, bs: int, chunk_size: int,
-                        max_chunks: int, lane: int):
+                        max_chunks: int, lane: int, entropy: str):
     """Whole-input diff -> adaptive block RLE at block size ``bs`` ->
-    chunked canonical entropy. The transformed stream is the concatenated
+    chunked entropy coding. The transformed stream is the concatenated
     tile data only: the manifest replaces the v1 in-band header. Returns
-    (lane_buf, lane_words, tables, total, dirs, tile_lens) on the device."""
+    ``_entropy_encode``'s (a, meta, tables), then (total, dirs,
+    tile_lens), on the device."""
     x = diff_apply(data) if use_diff else data
     stream, total, dirs, tile_lens = adapt_encode_fixed(
         x, width, height, bs, out_len=max_chunks * chunk_size,
         with_header=False)
     chunks, lens = _chunkify(stream, total, chunk_size, max_chunks)
-    buf, lane_words, tables = canonical_encode_batch(chunks, lens, lane=lane)
-    return buf, lane_words, tables, total, dirs, tile_lens
+    return (*_entropy_encode(chunks, lens, entropy, lane), total, dirs,
+            tile_lens)
 
 
 def _band_tiles(width: int, band_h: int, bs: int) -> int:
@@ -277,13 +317,14 @@ def _band_winner_order(work: torch.Tensor, width: int, band_h: int, bs: int):
 
 def _encode_sharded_adapt_stage(bands: torch.Tensor, carries: torch.Tensor,
                                 use_diff: bool, width: int, band_h: int,
-                                bs: int, cap: int, lane: int):
+                                bs: int, cap: int, lane: int,
+                                entropy: str = "canonical"):
     """Sharded-adaptive encode of (nb, band_h * width) uint8 bands of one
     height: per-band diff seeded by ``carries``, adaptive block RLE of
     each band on its own at block size ``bs`` (tiles clamped at the
-    band's borders), a canonical table per band. Returns (lane_buf,
-    lane_words, tables, stream_lens (nb,), dirs (nb, nt), tile_lens
-    (nb, nt)) on the device."""
+    band's borders), entropy coding per band. Returns
+    ``_entropy_encode``'s (a, meta, tables), then (stream_lens (nb,), dirs
+    (nb, nt), tile_lens (nb, nt)), on the device."""
     work = diff_apply(bands, carries) if use_diff else bands
     nb, cs = work.shape
     if width % bs == 0 and band_h % bs == 0 and cs % 16 == 0:
@@ -297,9 +338,8 @@ def _encode_sharded_adapt_stage(bands: torch.Tensor, carries: torch.Tensor,
     else:
         streams, totals, dirs, tile_lens = adapt_encode_bands(
             work, width, band_h, bs, cap)
-    buf, lane_words, tables = canonical_encode_batch(streams, totals,
-                                                     lane=lane)
-    return buf, lane_words, tables, totals, dirs, tile_lens
+    return (*_entropy_encode(streams, totals, entropy, lane), totals, dirs,
+            tile_lens)
 
 
 def _decode_sharded_adapt_tail(streams, tile_lens, dirs, carries, width: int,
@@ -321,16 +361,20 @@ def _global_geometry(cfg: CodecConfig, n: int, whole: bool):
     ``n`` input bytes. ``whole``: one chunk of fat lanes, the smallest
     power-of-two lane >= an eighth of the padded RLE size, at most 32768,
     and the chunk rounded up to 8 lanes; else ``chunk_size`` chunks at
-    lane 2048 (the configured lane when ``whole_file`` is off or 2048
-    does not divide the chunk)."""
+    lane 2048 (the configured lane for FGK entropy, when ``whole_file`` is
+    off or when 2048 does not divide the chunk)."""
     cap = rle_max_encoded_len(n) + 64
     if whole:
         lane = min(1 << 15, max(64, 1 << ((cap + 7) // 8 - 1).bit_length()))
         cs = _cdiv(cap, 8 * lane) * (8 * lane)
         return cs, lane, 1
-    lane = (2048 if cfg.whole_file and cfg.chunk_size % 2048 == 0
-            else cfg.lane)
+    lane = (2048 if cfg.whole_file and cfg.entropy == "canonical"
+            and cfg.chunk_size % 2048 == 0 else cfg.lane)
     return cfg.chunk_size, lane, _cdiv(cap, cfg.chunk_size)
+
+
+def _entropy_name(hdr: dict) -> str:
+    return "canonical" if hdr["entropy"] == ENTROPY_CANONICAL else "fgk"
 
 
 def _decode_stream_tail(stream: torch.Tensor, total: int, out_len: int,
@@ -375,9 +419,6 @@ class TorchCodec:
             if cfg.chunk_size // cfg.width < 8:
                 raise ValueError("sharded adaptive needs bands of >= 8 "
                                  "rows (chunk_size / width)")
-        if cfg.entropy != "canonical":
-            raise NotImplementedError(
-                "FGK entropy comes with ROADMAP.md queue 1 item 2")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device; pass device='cpu' to run "
@@ -389,9 +430,9 @@ class TorchCodec:
         """Encode chunks [c0, c1) of the input (sharded layout only) as
         one fixed step; chunks past the input are zero-padded and encode
         nothing. The step is restartable through its carry byte, so a
-        range re-encoded alone splices in byte-equal. Returns (lane_buf,
-        lane_words, tables, rle_lens, carries) on the device, without
-        synchronising."""
+        range re-encoded alone splices in byte-equal. Returns
+        ``_entropy_encode``'s (a, meta, tables), then (rle_lens, carries),
+        on the device, without synchronising."""
         cfg = self.config
         if cfg.layout != "sharded":
             raise ValueError("encode_chunk_range requires the sharded layout")
@@ -405,7 +446,8 @@ class TorchCodec:
         carry0 = int(arr[lo - 1]) if 0 < lo <= n else 0
         x = torch.from_numpy(step_np).to(self.device)
         return _encode_sharded_stage(x, max(0, hi - lo), carry0,
-                                     cfg.use_diff, cs, c1 - c0, cfg.lane)
+                                     cfg.use_diff, cs, c1 - c0, cfg.lane,
+                                     cfg.entropy)
 
     def encode(self, data: bytes) -> bytes:
         cfg = self.config
@@ -441,46 +483,52 @@ class TorchCodec:
         n_chunks = _cdiv(n, cfg.chunk_size)
         arr = np.frombuffer(data, np.uint8)
         S = min(cfg.step_chunks or n_chunks, n_chunks)
-        payload, lws, tables, rle_lens, carries = [], [], [], [], []
+        payload, metas, tables, rle_lens, carries = [], [], [], [], []
         for k in range(_cdiv(n_chunks, S)):
-            buf, lw, tab, rl, car = self.encode_chunk_range(arr, k * S,
+            a, meta, tab, rl, car = self.encode_chunk_range(arr, k * S,
                                                             (k + 1) * S)
-            payload.append(_words_to_wire(_strip_payload(buf, lw)))
-            lws.append(lw.cpu().numpy())
-            tables.append(tab.cpu().numpy())
+            payload.append(_words_to_wire(_dense_payload(a, meta,
+                                                         cfg.entropy)))
+            metas.append(meta.cpu().numpy())
+            if tab is not None:
+                tables.append(tab.cpu().numpy())
             rle_lens.append(rl.cpu().numpy())
             carries.append(car.cpu().numpy())
         rl = np.concatenate(rle_lens)[:n_chunks]
         car = np.concatenate(carries)[:n_chunks]
-        lw = np.concatenate(lws)[:n_chunks]
-        chunk_bits = (lw.sum(axis=1, dtype=np.int64) * 32).tolist()
-        return self._container(b"".join(payload), n, int(rl.sum()),
-                               chunk_bits, np.concatenate(tables)[:n_chunks],
-                               lw, (rl, car), zlib.crc32(data))
+        meta = np.concatenate(metas)[:n_chunks]
+        canonical = cfg.entropy == "canonical"
+        return self._container(
+            b"".join(payload), n, int(rl.sum()),
+            _chunk_bits(meta, cfg.entropy),
+            np.concatenate(tables)[:n_chunks] if canonical else None,
+            meta if canonical else None, (rl, car), zlib.crc32(data))
 
     def run_sharded_adapt_stage(self, x: torch.Tensor, bs: int) -> list:
         """The sharded-adaptive device stage on resident input ((n,) uint8
         on the device, whole rows) at block size ``bs``, without
         synchronising: the full bands in one call, then a shorter tail
         band in a call of its own at its clamped geometry.
-        Returns per call (payload words, lane_words, tables, stream_lens,
-        dirs, tile_lens)."""
+        Returns per call (payload, meta, tables, stream_lens, dirs,
+        tile_lens): the payload as ``_dense_payload`` gives it, meta and
+        tables as ``_entropy_encode``."""
         cfg = self.config
         w, cs = cfg.width, cfg.chunk_size
         band_h = cs // w
         nb_full, h_tail = divmod(x.shape[0] // w, band_h)
         # band k's diff carry is the input byte before it
         car = torch.cat([x.new_zeros(1), x[cs - 1:: cs]])
-        cap = _sharded_cap(cs, "canonical", cfg.lane)
+        cap = _sharded_cap(cs, cfg.entropy, cfg.lane)
         calls = [(0, nb_full, band_h)] if nb_full else []
         if h_tail:
             calls.append((nb_full, nb_full + 1, h_tail))
         outs = []
         for b0, b1, bh in calls:
             bands = x[b0 * cs: b0 * cs + (b1 - b0) * bh * w].view(b1 - b0, -1)
-            buf, lw, *meta = _encode_sharded_adapt_stage(
-                bands, car[b0:b1], cfg.use_diff, w, bh, bs, cap, cfg.lane)
-            outs.append((_strip_payload(buf, lw), lw, *meta))
+            a, meta, *rest = _encode_sharded_adapt_stage(
+                bands, car[b0:b1], cfg.use_diff, w, bh, bs, cap, cfg.lane,
+                cfg.entropy)
+            outs.append((_dense_payload(a, meta, cfg.entropy), meta, *rest))
         return outs
 
     def _encode_sharded_adapt(self, data: bytes) -> bytes:
@@ -502,23 +550,27 @@ class TorchCodec:
                                   n_rows, max_height=band_h)
         outs = self.run_sharded_adapt_stage(x, bs)
         payload = b"".join(_words_to_wire(o[0]) for o in outs)
-        lw, tables, rl = (np.concatenate([o[i].cpu().numpy() for o in outs])
-                          for i in (1, 2, 3))
+        meta, rl = (np.concatenate([o[i].cpu().numpy() for o in outs])
+                    for i in (1, 3))
+        canonical = cfg.entropy == "canonical"
+        tables = (np.concatenate([o[2].cpu().numpy() for o in outs])
+                  if canonical else None)
         dirs, tile_lens = (
             np.concatenate([o[i].cpu().numpy().reshape(-1) for o in outs])
             for i in (4, 5))
         car = np.zeros(len(rl), np.uint8)
         car[1:] = arr[cs - 1:: cs][: len(rl) - 1]
-        chunk_bits = (lw.sum(axis=1, dtype=np.int64) * 32).tolist()
         return self._container(
-            payload, n, int(rl.sum()), chunk_bits, tables, lw, (rl, car),
+            payload, n, int(rl.sum()), _chunk_bits(meta, cfg.entropy),
+            tables, meta if canonical else None, (rl, car),
             zlib.crc32(data),
             adapt_meta=(w, n_rows, bs, dirs, tile_lens, False))
 
     def global_candidates(self, n: int) -> list[bool]:
         """The candidates ``encode`` tries for ``n`` input bytes, as
-        ``whole`` flags in the order that decides a tie."""
-        if (self.config.whole_file
+        ``whole`` flags in the order that decides a tie; FGK entropy has
+        only the chunked one."""
+        if (self.config.whole_file and self.config.entropy == "canonical"
                 and rle_max_encoded_len(n) + 64 <= _WHOLE_MAX_CAP):
             return [True, False]
         return [False]
@@ -527,22 +579,24 @@ class TorchCodec:
                          bs: int | None = None) -> dict:
         """One global-layout candidate's device stage on resident input
         ((n,) uint8 on the device), without synchronising: the dense
-        payload words, lane words, tables and stream length, and in
-        adaptive mode (``bs`` is the block size, None in stream mode) the
-        tiles' directions and lengths."""
+        payload (``_dense_payload``), the lane words or FGK bit counts,
+        the tables (None for FGK) and the stream length, and in adaptive
+        mode (``bs`` is the block size, None in stream mode) the tiles'
+        directions and lengths."""
         cfg = self.config
         n = x.shape[0]
         cs, lane, max_chunks = _global_geometry(cfg, n, whole)
         st = dict(cs=cs, lane=lane, n=n, bs=bs)
         if bs is None:
-            buf, lw, tables, total = _encode_stream_stage(
-                x, cfg.use_diff, cs, max_chunks, lane)
+            a, meta, tables, total = _encode_stream_stage(
+                x, cfg.use_diff, cs, max_chunks, lane, cfg.entropy)
         else:
             st["wh"] = w, h = cfg.width, n // cfg.width
-            buf, lw, tables, total, st["dirs"], st["tile_lens"] = (
+            a, meta, tables, total, st["dirs"], st["tile_lens"] = (
                 _encode_adapt_stage(x, cfg.use_diff, w, h, bs, cs,
-                                    max_chunks, lane))
-        st.update(payload=_strip_payload(buf, lw), meta=lw, tables=tables,
+                                    max_chunks, lane, cfg.entropy))
+        st.update(payload=_dense_payload(a, meta, cfg.entropy), meta=meta,
+                  tables=tables,
                   total=total)
         return st
 
@@ -559,18 +613,23 @@ class TorchCodec:
         cs = st["cs"]
         total = int(st["total"])
         n_chunks = _cdiv(total, cs)
-        lw = st["meta"].cpu().numpy()[:n_chunks]
-        chunk_bits = (lw.sum(axis=1, dtype=np.int64) * 32).tolist()
+        meta = st["meta"].cpu().numpy()[:n_chunks]
+        entropy = self.config.entropy
+        canonical = entropy == "canonical"
         adapt_meta = None
         if st["bs"] is not None:
             tile_lens = st["tile_lens"].cpu().numpy()
-            grouped = grouped_manifest(len(tile_lens), st["bs"],
-                                       4 * int(lw.sum()))
+            # the payload estimate: the lanes' words, or the FGK bits
+            est = (4 * int(meta.sum()) if canonical
+                   else int(meta.sum()) // 8)
+            grouped = grouped_manifest(len(tile_lens), st["bs"], est)
             adapt_meta = (*st["wh"], st["bs"], st["dirs"].cpu().numpy(),
                           tile_lens, grouped)
         return self._container(
-            _words_to_wire(st["payload"]), st["n"], total, chunk_bits,
-            st["tables"].cpu().numpy()[:n_chunks], lw, None,
+            _words_to_wire(st["payload"]), st["n"], total,
+            _chunk_bits(meta, entropy),
+            st["tables"].cpu().numpy()[:n_chunks] if canonical else None,
+            meta if canonical else None, None,
             zlib.crc32(data), chunk_size=cs, lane=st["lane"],
             adapt_meta=adapt_meta)
 
@@ -601,7 +660,7 @@ class TorchCodec:
         cfg = self.config
         chunk_size = cfg.chunk_size if chunk_size is None else chunk_size
         lane = cfg.lane if lane is None else lane
-        canonical = cfg.entropy == "canonical" and tables is not None
+        canonical = cfg.entropy == "canonical"
         out = bytearray()
         out += V3_MAGIC
         out.append(3)  # container version
@@ -667,13 +726,44 @@ class TorchCodec:
     # -- decode -------------------------------------------------------------
 
     def _check_supported(self, hdr: dict) -> None:
-        if hdr["entropy"] != ENTROPY_CANONICAL:
-            raise NotImplementedError(
-                "FGK containers come with ROADMAP.md queue 1 item 2")
+        if hdr["entropy"] not in (ENTROPY_CANONICAL, ENTROPY_FGK):
+            raise ValueError(f"unknown entropy mode {hdr['entropy']} in "
+                             "the v3 container")
+
+    def _stage_fgk_words(self, blob: bytes, hdr: dict, c0: int, c1: int,
+                         rows: int) -> torch.Tensor:
+        """Chunks [c0, c1) of an FGK container as (rows, W) int32 word rows
+        on the device, zero past each chunk's stream (and in the rows past
+        c1 - c0). Only the payload bytes cross to the device; W is the
+        longest stream's words plus one zero word, so a read past any
+        stream reads zeros, as in the JAX package's wider rows."""
+        offs = hdr["chunk_offs"]
+        base = hdr["payload_off"] + int(offs[c0])
+        nbytes = int(offs[c1] - offs[c0])
+        nb = np.zeros(rows, np.int64)
+        nb[: c1 - c0] = np.diff(offs[c0:c1 + 1])
+        off = np.zeros(rows, np.int64)
+        off[: c1 - c0] = offs[c0:c1] - offs[c0]
+        dev = self.device
+        payload = torch.from_numpy(
+            np.frombuffer(blob, np.uint8, nbytes, base).copy()).to(dev)
+        return chunk_words(payload, torch.from_numpy(off).to(dev),
+                           torch.from_numpy(nb).to(dev),
+                           _cdiv(int(nb.max(initial=0)), 4) + 1)
 
     def _stage_step(self, blob: bytes, hdr: dict, c0: int, c1: int, S: int):
         """Host -> device transfer of one decode step: the step's dense
-        payload words plus its manifest rows, zero-padded to S chunks."""
+        payload plus its manifest rows, zero-padded to S chunks."""
+        rl = np.zeros(S, np.int32)
+        rl[: c1 - c0] = hdr["rle_lens"][c0:c1]
+        car = np.zeros(S, np.uint8)
+        car[: c1 - c0] = hdr["carries"][c0:c1]
+        dev = self.device
+        st = {"c0": c0, "c1": c1, "rl": torch.from_numpy(rl).to(dev),
+              "car": torch.from_numpy(car).to(dev)}
+        if hdr["entropy"] == ENTROPY_FGK:
+            st["words"] = self._stage_fgk_words(blob, hdr, c0, c1, S)
+            return st
         nl = hdr["lane_words"].shape[1]
         offs = hdr["chunk_offs"]
         base = hdr["payload_off"] + int(offs[c0])
@@ -683,17 +773,23 @@ class TorchCodec:
         lw[: c1 - c0] = hdr["lane_words"][c0:c1]
         tab = np.zeros((S, 256), np.uint8)
         tab[: c1 - c0] = hdr["tables"][c0:c1]
-        rl = np.zeros(S, np.int32)
-        rl[: c1 - c0] = hdr["rle_lens"][c0:c1]
-        car = np.zeros(S, np.uint8)
-        car[: c1 - c0] = hdr["carries"][c0:c1]
-        dev = self.device
-        return {"c0": c0, "c1": c1,
-                "flat": torch.from_numpy(flat.view(np.int32)).to(dev),
-                "lw": torch.from_numpy(lw).to(dev),
-                "tables": torch.from_numpy(tab).to(dev),
-                "rl": torch.from_numpy(rl).to(dev),
-                "car": torch.from_numpy(car).to(dev)}
+        st.update(flat=torch.from_numpy(flat.view(np.int32)).to(dev),
+                  lw=torch.from_numpy(lw).to(dev),
+                  tables=torch.from_numpy(tab).to(dev))
+        return st
+
+    @staticmethod
+    def _entropy_decode(hdr: dict, st: dict, counts: torch.Tensor,
+                        out_len: int) -> torch.Tensor:
+        """A staged step's chunks -> (rows, out_len) uint8 symbols: the FGK
+        decode of its word rows, or the re-pad and canonical lane decode
+        of its dense lane words."""
+        if _entropy_name(hdr) == "fgk":
+            return kernels.fgk_decode(st["words"], counts, out_len)
+        words = kernels.repad_words(st["flat"], st["lw"], hdr["wl_bucket"])
+        return canonical_decode_batch(
+            words, st["tables"], st["lw"], counts, lane=hdr["lane"],
+            out_len=out_len, max_len=hdr["max_len_bucket"])
 
     def stage_decode_steps(self, blob: bytes, hdr: dict | None = None):
         """Parse, then start the host -> device transfer of every decode
@@ -714,15 +810,12 @@ class TorchCodec:
     def run_decode_steps(self, hdr: dict, staged: list):
         """Run the decode compute of staged steps; returns each step's
         (S * chunk_size,) uint8 device tensor without synchronising."""
-        cs, lane = hdr["chunk_size"], hdr["lane"]
+        cs = hdr["chunk_size"]
         use_diff = bool(hdr["flags"] & FLAG_DIFF)
-        cap = _sharded_cap(cs, "canonical", lane)
+        cap = _sharded_cap(cs, _entropy_name(hdr), hdr["lane"])
         parts = []
         for st in staged:
-            w = kernels.repad_words(st["flat"], st["lw"], hdr["wl_bucket"])
-            chunks_rle = canonical_decode_batch(
-                w, st["tables"], st["lw"], st["rl"], lane=lane, out_len=cap,
-                max_len=hdr["max_len_bucket"])
+            chunks_rle = self._entropy_decode(hdr, st, st["rl"], cap)
             out = kernels.rle_expand(chunks_rle, st["rl"], st["car"], cs,
                                      use_diff)
             parts.append(out.view(-1))
@@ -763,15 +856,10 @@ class TorchCodec:
         device tensor, without synchronising: entropy decode of each
         band's chunk, tile decode from the manifest, per-band diff
         revert."""
-        cs, lane = hdr["chunk_size"], hdr["lane"]
-        cap = _sharded_cap(cs, "canonical", lane)
+        cap = _sharded_cap(hdr["chunk_size"], _entropy_name(hdr), hdr["lane"])
         parts = []
         for st in staged:
-            words = kernels.repad_words(st["flat"], st["lw"],
-                                        hdr["wl_bucket"])
-            streams = canonical_decode_batch(
-                words, st["tables"], st["lw"], st["rl"], lane=lane,
-                out_len=cap, max_len=hdr["max_len_bucket"])
+            streams = self._entropy_decode(hdr, st, st["rl"], cap)
             parts.append(_decode_sharded_adapt_tail(
                 streams, st["tile_lens"], st["dirs"], st["car"], hdr["w"],
                 st["band_h"], hdr["bs"], bool(hdr["flags"] & FLAG_DIFF)))
@@ -820,12 +908,30 @@ class TorchCodec:
 
     def stage_global(self, blob: bytes, hdr: dict) -> dict:
         """Host -> device transfer of a global-layout container: every
-        chunk's dense payload words and the manifest, without any
-        compute. A one-chunk container of at most 2 MiB whose lanes
-        divide by 8 is staged as 8 pseudo-chunks that share the one
-        table."""
+        chunk's dense payload and the manifest, without any compute. A
+        canonical one-chunk container of at most 2 MiB whose lanes divide
+        by 8 is staged as 8 pseudo-chunks that share the one table."""
         if hdr["flags"] & FLAG_SHARDED:
             raise ValueError("stage_global requires the global layout")
+        cs, n_chunks = hdr["chunk_size"], hdr["n_chunks"]
+        dev = self.device
+        if hdr["entropy"] == ENTROPY_FGK:
+            counts = np.clip(
+                hdr["total"] - np.arange(n_chunks, dtype=np.int64) * cs,
+                0, cs).astype(np.int32)
+            st = {"rcs": cs, "counts": torch.from_numpy(counts).to(dev),
+                  "words": self._stage_fgk_words(blob, hdr, 0, n_chunks,
+                                                 n_chunks)}
+        else:
+            st = self._stage_global_lanes(blob, hdr)
+        if hdr["flags"] & FLAG_ADAPT:
+            st["dirs"] = torch.from_numpy(hdr["dirs"]).to(dev)
+            key = "group_offs" if hdr["flags"] & FLAG_AGROUP else "tile_lens"
+            st[key] = torch.from_numpy(hdr[key].astype(np.int32)).to(dev)
+        return st
+
+    def _stage_global_lanes(self, blob: bytes, hdr: dict) -> dict:
+        """``stage_global``'s canonical payload and tables."""
         cs, lane, n_chunks = hdr["chunk_size"], hdr["lane"], hdr["n_chunks"]
         nw = int(hdr["chunk_offs"][-1]) // 4
         flat = np.frombuffer(blob, ">u4", nw, hdr["payload_off"]).astype(
@@ -841,27 +947,19 @@ class TorchCodec:
         counts = np.clip(hdr["total"] - np.arange(rows, dtype=np.int64) * rcs,
                          0, rcs).astype(np.int32)
         dev = self.device
-        st = {"rcs": rcs,
-              "flat": torch.from_numpy(flat.view(np.int32)).to(dev),
-              "lw": torch.from_numpy(lane_words).to(dev),
-              "tables": torch.from_numpy(tables).to(dev),
-              "counts": torch.from_numpy(counts).to(dev)}
-        if hdr["flags"] & FLAG_ADAPT:
-            st["dirs"] = torch.from_numpy(hdr["dirs"]).to(dev)
-            key = "group_offs" if hdr["flags"] & FLAG_AGROUP else "tile_lens"
-            st[key] = torch.from_numpy(hdr[key].astype(np.int32)).to(dev)
-        return st
+        return {"rcs": rcs,
+                "flat": torch.from_numpy(flat.view(np.int32)).to(dev),
+                "lw": torch.from_numpy(lane_words).to(dev),
+                "tables": torch.from_numpy(tables).to(dev),
+                "counts": torch.from_numpy(counts).to(dev)}
 
     def run_global_decode(self, hdr: dict, st: dict):
         """The decode compute of a staged global-layout container: (at
         least ``orig`` bytes uint8, the decoded length) on the device,
         without synchronising."""
         # repad is per lane, so the pseudo-chunk rows re-pad as they are
-        words = kernels.repad_words(st["flat"], st["lw"], hdr["wl_bucket"])
-        chunks = canonical_decode_batch(
-            words, st["tables"], st["lw"], st["counts"], lane=hdr["lane"],
-            out_len=st["rcs"], max_len=hdr["max_len_bucket"])
-        stream = chunks.reshape(-1)
+        stream = self._entropy_decode(hdr, st, st["counts"],
+                                      st["rcs"]).reshape(-1)
         use_diff = bool(hdr["flags"] & FLAG_DIFF)
         if not hdr["flags"] & FLAG_ADAPT:
             return _decode_stream_tail(stream, hdr["total"], hdr["orig"] + 8,

@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("rle_encode", "histogram", "lane_pack", "repad", "lane_decode",
-           "rle_expand", "lane_decode_lm", "group_tile_lens")
+           "rle_expand", "lane_decode_lm", "group_tile_lens", "fgk")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -29,6 +29,7 @@ from huffman_codec_tpu_torch.ops.rle import (
     _emissions,
     rle_concat,
     rle_encode,
+    rle_encoded_size,
     rle_max_encoded_len,
 )
 
@@ -100,6 +101,29 @@ def _gather_tiles(flat: torch.Tensor, width: int, height: int, bs: int):
     return (flat[..., torch.from_numpy(hor_idx).to(dev)],
             flat[..., torch.from_numpy(ver_idx).to(dev)],
             torch.from_numpy(lens).to(dev))
+
+
+def _tile_sizes(flat: torch.Tensor, width: int, height: int, bs: int):
+    """(hor_sizes, ver_sizes, lens): every tile's encoded size in both scan
+    orders, nothing materialised."""
+    hor, ver, lens = _gather_tiles(flat, width, height, bs)
+    return rle_encoded_size(hor, lens), rle_encoded_size(ver, lens), lens
+
+
+def adapt_search_sizes(matrix: torch.Tensor, width: int,
+                       height: int) -> torch.Tensor:
+    """The reference's block-size search: the v1 adaptive payload's bytes
+    (its in-band header included) for every candidate block size, int64
+    on the device. The caller takes the first minimum, so a tie keeps the
+    smaller block."""
+    flat = matrix.reshape(-1)
+    totals = []
+    for bs in candidate_sizes(width, height):
+        h, v, _ = _tile_sizes(flat, width, height, bs)
+        nt = h.shape[0]
+        totals.append(ADAPT_HEADER_BYTES + (nt + 7) // 8
+                      + torch.minimum(h, v).sum())
+    return torch.stack(totals)
 
 
 def grouped_manifest(nt: int, bs: int, est_payload: int) -> bool:

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels of the port: the seven of the sharded
 and the global canonical round trips, the tile mode of the first (the
-adaptive band stage) and the group walk of the grouped adaptive manifest.
+adaptive band stage), the group walk of the grouped adaptive manifest and
+the FGK encode and decode.
 
 Each kernel has three parts here:
 
@@ -28,8 +29,10 @@ import threading
 import torch
 
 from huffman_codec_tpu_torch.ops import _build
+from huffman_codec_tpu_torch.ops import fgk as _fgk
 from huffman_codec_tpu_torch.ops import rle as _rle
 from huffman_codec_tpu_torch.ops.diff import diff_apply, diff_revert
+from huffman_codec_tpu_torch.ops.pack import to_i32_bits
 
 N_SYM = 256
 MASK26 = (1 << 26) - 1
@@ -39,12 +42,6 @@ def lane_words_cap(lane: int) -> int:
     """Output words per lane: codes are <= 31 bits, rounded to a
     128-word multiple (the v3 wire's worst-case lane stride)."""
     return -(-(lane * 31 // 32 + 1) // 128) * 128
-
-
-def _to_i32_bits(v: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> int32 tensors holding the same bits."""
-    v = v & 0xFFFFFFFF
-    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +226,7 @@ def lane_pack_plain(data, lengths, tables, lane: int):
                      ((win >> 32) & 0xFFFFFFFF).reshape(-1))
     acc.scatter_add_(0, (row + w0 + 1).reshape(-1),
                      (win & 0xFFFFFFFF).reshape(-1))
-    words = _to_i32_bits(acc).view(C, nl, W + 1)[:, :, :W].clone()
+    words = to_i32_bits(acc).view(C, nl, W + 1)[:, :, :W].clone()
     words[:, :, W - 1] = 0  # the TPU wrapper's bit-count column
     return words, bits.to(torch.int32)
 
@@ -601,8 +598,70 @@ def group_tile_lens(stream: torch.Tensor, group_offs: torch.Tensor,
 group_tile_lens.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# FGK adaptive Huffman encode and decode (no TPU kernel: the JAX package
+# runs the serial tree update as an XLA scan)
+# ---------------------------------------------------------------------------
+
+
+def fgk_encode_plain(chunks, lengths, n_words: int):
+    return _fgk.fgk_encode_batch(chunks, lengths, n_words)
+
+
+def fgk_encode(chunks: torch.Tensor, lengths: torch.Tensor, n_words: int):
+    """FGK encode of the first ``lengths[c]`` symbols of each (C, L) uint8
+    row with a tree of its own. Returns (words (C, n_words) int32, the
+    codes MSB-first, zero past each stream and cut at ``n_words``; bits
+    (C,) int32)."""
+    if chunks.device.type == "cpu":
+        return fgk_encode_plain(chunks, lengths, n_words)
+    dev = _check_cuda("fgk_encode", (chunks, torch.uint8, 2),
+                      (lengths, torch.int32, 1))
+    C, L = chunks.shape
+    if n_words < 1:
+        raise ValueError("fgk_encode: n_words >= 1")
+    words = torch.empty((C, n_words), dtype=torch.int32, device=dev)
+    bits = torch.empty((C,), dtype=torch.int32, device=dev)
+    if C:
+        _launch("fgk", "fgk_encode_launch", (chunks, lengths, words, bits),
+                (C, L, n_words), dev)
+        fgk_encode.launches += 1
+    return words, bits
+
+
+fgk_encode.launches = 0
+
+
+def fgk_decode_plain(words, counts, out_len: int):
+    return _fgk.fgk_decode_batch(words, counts, out_len)
+
+
+def fgk_decode(words: torch.Tensor, counts: torch.Tensor,
+               out_len: int) -> torch.Tensor:
+    """FGK decode of (C, W) int32 word streams (W >= 1): the first
+    ``counts[c]`` symbols of each, a tree a row. Returns (C, out_len)
+    uint8, zero past each count; a read past a row reads its last word."""
+    if words.device.type == "cpu":
+        return fgk_decode_plain(words, counts, out_len)
+    dev = _check_cuda("fgk_decode", (words, torch.int32, 2),
+                      (counts, torch.int32, 1))
+    C, W = words.shape
+    if W < 1 or out_len < 0:
+        raise ValueError("fgk_decode: rows of at least one word")
+    out = torch.empty((C, out_len), dtype=torch.uint8, device=dev)
+    if C:
+        _launch("fgk", "fgk_decode_launch", (words, counts, out),
+                (C, W, out_len), dev)
+        fgk_decode.launches += 1
+    return out
+
+
+fgk_decode.launches = 0
+
+
 KERNELS = (rle_diff_encode, histogram256, lane_pack, repad_words,
-           lane_decode, rle_expand, lane_decode_lanemajor, group_tile_lens)
+           lane_decode, rle_expand, lane_decode_lanemajor, group_tile_lens,
+           fgk_encode, fgk_decode)
 # kernel 1b shares kernel 1's wrapper and is counted under this name
 TILE_MODE = "rle_diff_encode_tile"
 

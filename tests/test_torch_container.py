@@ -107,11 +107,20 @@ def test_config_crosses_packages():
 
 
 @pytest.mark.parametrize("cfg", [
-    CodecConfig(layout="sharded", entropy="fgk"),
+    CodecConfig(layout="sharded", entropy="huffman"),
 ])
 def test_unsupported_configs_raise(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # FGK entropy is supported (test_fgk_config_and_container_supported);
+    # an unknown entropy mode still raises
+    with pytest.raises(ValueError, match="unknown entropy"):
         TorchCodec(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("layout", ["sharded", "global"])
+def test_fgk_config_and_container_supported(layout):
+    codec = TorchCodec(CodecConfig(layout=layout, entropy="fgk"), "cpu")
+    codec._check_supported({"flags": tch.FLAG_SHARDED, "entropy": 0})
+    assert codec.decode(codec.encode(b"")) == b""
 
 
 def test_invalid_configs_raise_value_error():
@@ -133,10 +142,11 @@ def test_non_v3_input_raises():
 
 
 @pytest.mark.parametrize("hdr", [
-    {"flags": tch.FLAG_SHARDED, "entropy": 0},  # FGK
+    {"flags": tch.FLAG_SHARDED, "entropy": 7},  # no such entropy mode
 ])
 def test_unsupported_containers_raise(hdr):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # an FGK header (entropy 0) passes: test_fgk_config_and_container_supported
+    with pytest.raises(ValueError, match="unknown entropy"):
         TorchCodec(device="cpu")._check_supported(hdr)
 
 

@@ -12,10 +12,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from huffman_codec_tpu_torch import CodecConfig, TorchCodec  # noqa: E402
+from huffman_codec_tpu_torch import CodecConfig, TorchCodec, V1Codec  # noqa: E402
 from huffman_codec_tpu_torch.edge_cases import (  # noqa: E402
-    ODD_CONFIGS, lane_edge_rows, match_plain_rows, odd_config_input,
-    pack_edge_rows, pack_lane_rows, rle_edge_rows, rle_encode_edge_rows)
+    ODD_CONFIGS, fgk_deep_row, fgk_edge_rows, lane_edge_rows,
+    match_plain_rows, odd_config_input, pack_edge_rows, pack_lane_rows,
+    rle_edge_rows, rle_encode_edge_rows)
+from huffman_codec_tpu_torch.native import runtime  # noqa: E402
+from huffman_codec_tpu_torch.ops.fgk import n_words_for  # noqa: E402
+from huffman_codec_tpu_torch.ops.pack import chunk_bytes  # noqa: E402
 from huffman_codec_tpu_torch.ops import adapt as tad  # noqa: E402
 from huffman_codec_tpu_torch.ops import canonical as tcan  # noqa: E402
 from huffman_codec_tpu_torch.ops import kernels as K  # noqa: E402
@@ -570,3 +574,112 @@ def test_repad_replayed_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, K.repad_words_plain(flat[:n], lw, wb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 256])
+def test_fgk_kernels_match_plain_on_edge_rows(cuda, C):
+    # empty, one- and two-symbol rows, all 256 symbols, run-heavy streams,
+    # lengths off every word and the kernels' 1024-symbol stage, the
+    # deepest tree for the length; C = 1 takes the all-symbols row
+    x, ln = fgk_edge_rows(2100, 71)
+    pick = np.resize(np.arange(len(ln)), C) if C > 1 else np.array([3])
+    x = torch.from_numpy(x[pick]).to(cuda)
+    ln = torch.from_numpy(ln[pick]).to(cuda)
+    nw = n_words_for(2100)
+    K.reset_launches()
+    w, b = K.fgk_encode(x, ln, nw)
+    d = K.fgk_decode(w, ln, 2100)
+    counts = K.launch_counts()
+    assert counts["fgk_encode"] == 1 and counts["fgk_decode"] == 1
+    pw, pb = K.fgk_encode_plain(x, ln, nw)
+    assert torch.equal(b, pb) and torch.equal(w, pw)
+    assert torch.equal(d, K.fgk_decode_plain(w, ln, 2100))
+    valid = torch.arange(2100, device=cuda)[None, :] < ln[:, None]
+    assert torch.equal(d, torch.where(valid, x, 0))
+
+
+@pytest.mark.cuda
+def test_fgk_kernels_codes_past_32_bits(cuda):
+    # fresh symbols 33 bits deep: the encoder's high word. MNP-5 leaves the
+    # row as it is, so its v1 body is its FGK stream
+    row = fgk_deep_row(72)
+    n = row.size
+    x = torch.from_numpy(row).to(cuda)[None, :]
+    ln = torch.tensor([n], dtype=torch.int32, device=cuda)
+    w, b = K.fgk_encode(x, ln, n_words_for(n))
+    v1 = runtime.v1_compress(row.tobytes())
+    assert chunk_bytes(w, b).cpu().numpy().tobytes() == v1[9:]
+    assert torch.equal(K.fgk_decode(w, ln, n), x)
+
+
+def _fgk_input(name):
+    rng = np.random.default_rng(73)
+    if name.startswith("sharded-adapt") or name.startswith("global-adapt"):
+        y, x = np.mgrid[0:80, 0:64]
+        img = ((x // 3 + y // 5) % 256 + rng.integers(0, 2, (80, 64)))
+        return img.astype(np.uint8).tobytes()
+    return (np.cumsum(rng.integers(-2, 3, 3000)) & 255).astype(
+        np.uint8).tobytes()
+
+
+FGK_CONFIGS = {
+    "sharded": CodecConfig(layout="sharded", chunk_size=1024,
+                           entropy="fgk", step_chunks=2),
+    "sharded-diff": CodecConfig(layout="sharded", chunk_size=1000,
+                                use_diff=True, entropy="fgk"),
+    "global-diff": CodecConfig(chunk_size=512, use_diff=True, entropy="fgk"),
+    "global-adapt": CodecConfig(use_adapt=True, width=64, chunk_size=512,
+                                entropy="fgk"),
+    "sharded-adapt": CodecConfig(use_adapt=True, width=64, chunk_size=1024,
+                                 layout="sharded", entropy="fgk"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FGK_CONFIGS))
+def test_gpu_fgk_container_equals_cpu_plain_path(cuda, name):
+    cfg, data = FGK_CONFIGS[name], _fgk_input(name)
+    gpu, cpu = TorchCodec(cfg), TorchCodec(cfg, device="cpu")
+    if cfg.layout == "sharded":
+        K.reset_launches()
+        g, c = gpu.encode(data), cpu.encode(data)
+        assert K.launch_counts()["fgk_encode"] >= 1
+    else:  # the v3 candidate, not the v1 race's pick
+        bs = None
+        if cfg.use_adapt:
+            x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+            bs = tad.adapt_search_best_v3(x, 64, len(data) // 64)
+        g, c = (k._encode_global(data, bs, False) for k in (gpu, cpu))
+    assert g == c
+    K.reset_launches()
+    assert gpu.decode(c) == data
+    assert K.launch_counts()["fgk_decode"] >= 1
+
+
+@pytest.mark.cuda
+def test_gpu_decodes_jax_shaped_fgk_container(cuda):
+    # a container as the JAX package writes it (the CPU plain path writes
+    # the same bytes: tests/test_torch_fgk.py), decoded on the card, then a
+    # range across a chunk border
+    cfg = CodecConfig(layout="sharded", chunk_size=512, use_diff=True,
+                      entropy="fgk")
+    data = _fgk_input("sharded")
+    blob = TorchCodec(cfg, device="cpu").encode(data)
+    gpu = TorchCodec(cfg)
+    assert gpu.decode(blob) == data
+    assert gpu.decode_range(blob, 500, 40) == data[500:540]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_diff,use_adapt",
+                         [(False, False), (True, False), (False, True),
+                          (True, True)])
+def test_gpu_v1codec_equals_native(cuda, use_diff, use_adapt):
+    data = _fgk_input("global-adapt")
+    codec = V1Codec(CodecConfig(use_diff=use_diff, use_adapt=use_adapt,
+                                width=64))
+    blob = codec.encode(data)
+    assert blob == runtime.v1_compress(data, use_diff, use_adapt, 64)
+    assert codec.decode(blob) == data
+    assert runtime.v1_decompress(blob) == data
