@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from huffman_codec_tpu_torch/csrc and the host C++
-runtime of the v1 format, and drives four paths.
+runtime of the v1 format, and drives five paths.
 
 The sharded streaming path: holds the six kernels it runs against their
 plain PyTorch versions on the card (one full step of 256 x 64 KiB chunks,
@@ -70,11 +70,28 @@ times the kernels (beside their bound and the latency floor of their
 serial chain, from one dependent shared-memory access measured in the run
 by ``kernel_variants/smem_chase.cu``) and the device encode and decode.
 
+The command line (``python -m huffman_codec_tpu_torch``) on the card,
+with its device left at the default: ``cli.main`` compresses the 64 MiB
+sharded input from a file (``-c -m --format=v3 --layout=sharded
+--stats``) and decompresses it, the container held to ``TorchCodec``'s and
+kernels 1-6 counted; v1's default backend (``torch``, the device
+``V1Codec``) on 256 KiB in the four pipeline configs against
+``--backend native``, and on the three broken adaptive v1 blobs (exit codes 13, 14 and 15, the host runtime's stderr lines); the
+module entry in a process of its own on a 16 MiB prefix, against the
+in-process bytes; ``--dump-tables`` against the CPU plain path. Then a
+64 MiB sharded encode and decode run under
+``utils.profiling.device_trace``, and read from the trace: the share of
+the traced window that the CUDA kernels cover (the union of their
+intervals), the share that kernels or copies cover, the idle share (one
+less the latter), and the five kernels that took the most device time.
+
 Each path's kernel launches are counted from zero over its round trips.
 The encode kernels (1, 1b and 3), ``repad_words`` (beside its library
 call, one ``masked_scatter_``) and the fat-lane decode kernel are also
 timed at every geometry they serve, each time beside its bound
-(``by_geometry`` in their rows).
+(``by_geometry`` in their rows). Device times come from
+``utils.profiling.device_time`` (``cuda_ms`` here): CUDA events around
+runs queued behind a device spin.
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
 result, when there is no GPU or any phase fails.
@@ -82,24 +99,28 @@ result, when there is no GPU or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from huffman_codec_tpu_torch.utils.profiling import device_time, device_trace
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # The kernels' operations are 32-bit integer work: Hopper issues 64 INT32
 # operations a clock on each of its 132 SMs.
 INT32_OPS_PER_CLOCK = 132 * 64
-# device clocks to spin per timed run, so that the host has enqueued every
-# run before the first starts (a wrapper call costs tens of microseconds)
-QUEUE_CYCLES_PER_RUN = 400_000
 STEP = 256  # chunks per step on the main path
 CS = 1 << 16
 LANE = 512
@@ -156,24 +177,12 @@ def rle_encode_ops(n_in: int, n_out: int, diff: bool, tile: bool) -> int:
 
 def cuda_ms(fn, reps: int = 10, warm: int = 2,
             queued: bool = False) -> float:
-    """Mean time of ``fn`` over ``reps`` runs between two CUDA events. With
-    ``queued`` the runs are enqueued behind a spin of device work, so the
-    events time the device alone and not the host's rate of launching
-    (what a kernel costs inside a longer chain of launches); without it a
-    stage that launches faster than the host can issue shows that cost."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    if queued:
-        torch.cuda._sleep(QUEUE_CYCLES_PER_RUN * reps)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+    """Milliseconds of ``fn()`` between two CUDA events, the mean of
+    ``reps`` runs (``utils.profiling.device_time``). With ``queued`` the
+    runs are enqueued behind a spin of device work, so the events time the
+    device alone and not the host's rate of launching; without it a stage
+    that launches faster than the host can issue shows that cost."""
+    return device_time(fn, reps=reps, warm=warm, queued=queued) * 1e3
 
 
 def histogram_library(data, lengths):
@@ -1115,14 +1124,23 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
         plain_ms = (time.perf_counter() - t) * 1e3
         same("group_tile_lens", got, want, errs)
         same("group_tile_lens.vs_tile_lens", got, tl, errs)
+        # the instance that also writes each tile's decoded size (V1Codec):
+        # the same lengths, and every tile of a valid stream its size
+        gd = K.group_tile_lens(*args, with_decoded=True)
+        same("group_tile_lens.decoded_lens", gd[0], got, errs)
+        same("group_tile_lens.decoded_vs_sizes", gd[1], sizes, errs)
         ms = cuda_ms(lambda: K.group_tile_lens(*args), reps=10, queued=True)
+        dms = cuda_ms(lambda: K.group_tile_lens(*args, with_decoded=True),
+                      reps=10, queued=True)
         # the stream and the manifest read once, the lengths written once;
         # a dozen integer operations a stream byte
         bound, by = bound_of(int(total) + 4 * offs.numel()
                              + 8 * sizes.numel(), 12 * int(total))
-        walk[bs] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        walk[bs] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                        decoded_ms=dms)
         log(f"group_tile_lens 512 x 512 bs {bs} ({offs.numel()} groups, "
-            f"{int(total)} stream bytes): {ms:.4f} ms, plain {plain_ms:.0f} "
+            f"{int(total)} stream bytes): {ms:.4f} ms (with the decoded "
+            f"sizes {dms:.4f} ms), plain {plain_ms:.0f} "
             f"ms (host clock, one run), bound {bound:.6f} ms by {by}; equal "
             "to the plain version and to the encoder's tile lengths")
     del img
@@ -1850,6 +1868,222 @@ def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access):
     return launches, rows_out
 
 
+# the kernels of the sharded chain (1-6), which the CLI's v3 runs launch,
+# and those its v1 runs on the default backend (torch) launch
+SHARDED_CHAIN = ("rle_diff_encode", "histogram256", "lane_pack",
+                 "repad_words", "lane_decode", "rle_expand")
+V1_DEVICE = ("fgk_encode", "fgk_decode", "group_tile_lens", "rle_expand")
+
+
+def run_cli(cli, argv, device=None):
+    """``cli.main(argv)`` in this process: (exit code, stderr text,
+    seconds from call to return, file I/O included)."""
+    err = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv, device=device)
+    return rc, err.getvalue(), time.perf_counter() - t
+
+
+def _union_us(events) -> float:
+    """Microseconds covered by the union of the events' intervals."""
+    busy, end = 0.0, float("-inf")
+    for s, d in sorted((e["ts"], e["dur"]) for e in events):
+        if s + d > end:
+            busy += s + d - max(s, end)
+            end = s + d
+    return busy
+
+
+def busy_share(trace: Path) -> dict:
+    """From a Chrome trace of ``torch.profiler``: the window the trace
+    spans (first event's start to last event's end), the union of the
+    CUDA kernels' intervals over it, the same with the copies and sets
+    added, the idle share (1 - the share of kernels or copies), and the
+    five kernels that took the most device time."""
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    if not kern:
+        raise AssertionError("the profiler trace holds no CUDA kernel "
+                             "events")
+    copies = [e for e in events
+              if e.get("cat") in ("gpu_memcpy", "gpu_memset")]
+    t0 = min(e["ts"] for e in events)
+    window = max(e["ts"] + e["dur"] for e in events) - t0
+    busy = _union_us(kern)
+    by_name: dict = {}
+    for e in kern:
+        n = by_name.setdefault(e["name"], [0.0, 0])
+        n[0] += e["dur"]
+        n[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"window_ms": window / 1e3, "kernel_busy_ms": busy / 1e3,
+            "busy_share": busy / window, "kernel_events": len(kern),
+            "copy_and_set_ms": sum(e["dur"] for e in copies) / 1e3,
+            "with_copies_share": _union_us(kern + copies) / window,
+            "idle_share": 1 - _union_us(kern + copies) / window,
+            "top5": [{"name": k[:80], "ms": v[0] / 1e3, "launches": v[1]}
+                     for k, v in top]}
+
+
+def cli_path(K, TorchCodec, CodecConfig, x) -> dict:
+    """The command line on the card, device left at its default: the
+    64 MiB sharded input through ``cli.main`` (-c, then -d) against
+    ``TorchCodec``, v1's default backend (``torch``) against the host
+    runtime on 256 KiB in the four pipeline configs and on the three
+    broken adaptive blobs,
+    ``python -m huffman_codec_tpu_torch`` in a subprocess, ``--dump-tables``
+    against the CPU plain path; then a 64 MiB sharded encode and decode
+    traced with ``utils.profiling.device_trace`` and the device's busy
+    share read from the trace. Returns the launch counts of the counted
+    CLI runs."""
+    from huffman_codec_tpu_torch import cli
+    from huffman_codec_tpu_torch.edge_cases import broken_adapt_v1_blobs
+
+    tmp = Path(tempfile.mkdtemp(prefix="hctpu-cli-"))  # outside the repo
+    try:
+        data = x.tobytes()
+        f = tmp / "in.raw"
+        f.write_bytes(data)
+        enc_argv = ["-c", "-m", "--format=v3", "--layout=sharded"]
+
+        # -- v3 sharded at full size, launches counted ----------------------
+        K.reset_launches()
+        rc, err, enc_s = run_cli(cli, [*enc_argv, "--stats", "-i", str(f),
+                                       "-o", str(tmp / "out.v3")])
+        if rc:
+            raise AssertionError(f"cli -c exit {rc}: {err}")
+        stats = [ln for ln in err.splitlines() if ln.startswith("{")][-1]
+        rc, err, dec_s = run_cli(cli, ["-d", "--format=v3", "-i",
+                                       str(tmp / "out.v3"), "-o",
+                                       str(tmp / "dec.raw")])
+        if rc:
+            raise AssertionError(f"cli -d exit {rc}: {err}")
+        v3 = K.launch_counts()
+        if not all(v3[k] for k in SHARDED_CHAIN):
+            raise AssertionError(f"the CLI's v3 runs did not launch every "
+                                 f"kernel of the sharded chain: {v3}")
+        blob = (tmp / "out.v3").read_bytes()
+        if (tmp / "dec.raw").read_bytes() != data:
+            raise AssertionError("cli -d did not restore the 64 MiB input")
+        if blob != TorchCodec(CodecConfig(use_diff=True,
+                                          layout="sharded")).encode(data):
+            raise AssertionError("the CLI's container differs from "
+                                 "TorchCodec's")
+        again = [run_cli(cli, [*enc_argv, "-i", str(f), "-o",
+                               str(tmp / "out2.v3")])[2],
+                 run_cli(cli, ["-d", "--format=v3", "-i", str(tmp / "out2.v3"),
+                               "-o", str(tmp / "dec2.raw")])[2]]
+        log(f"cli --stats: {stats}")
+        log(f"cli 64 MiB sharded -m, end to end with file I/O: encode "
+            f"{enc_s:.4f} s then {again[0]:.4f} s, decode {dec_s:.4f} s "
+            f"then {again[1]:.4f} s; container == TorchCodec's, decode "
+            f"exact; launches {v3}")
+
+        # -- v1 on the card: the default backend (torch) against native ----
+        v1 = tmp / "v1.raw"
+        v1.write_bytes(data[: 1 << 18])
+        for flags in ([], ["-m"], ["-a", "-w", "512"], ["-a", "-m"]):
+            outs, times = {}, {}
+            for backend, pick in (("torch", []),
+                                  ("native", ["--backend=native"])):
+                outs[backend] = tmp / f"v1.{backend}"
+                rc, err, times[backend] = run_cli(
+                    cli, ["-c", *flags, *pick, "-i",
+                          str(v1), "-o", str(outs[backend])])
+                if rc:
+                    raise AssertionError(f"cli v1 {flags} {backend}: {err}")
+            if outs["torch"].read_bytes() != outs["native"].read_bytes():
+                raise AssertionError(f"v1 default (torch) {flags} differs from "
+                                     "native")
+            rc, err, d_s = run_cli(cli, ["-d", "-i",
+                                         str(outs["torch"]), "-o",
+                                         str(tmp / "v1.dec")])
+            if rc or (tmp / "v1.dec").read_bytes() != data[: 1 << 18]:
+                raise AssertionError(f"v1 default (torch) -d {flags}: {err}")
+            log(f"cli v1 default (torch) 256 KiB "
+                f"{' '.join(flags) or '(none)'}: "
+                f"== native; encode {times['torch']:.3f} s (native "
+                f"{times['native']:.3f} s), device decode {d_s:.3f} s")
+        counts = K.launch_counts()
+        if not all(counts[k] > v3[k] for k in V1_DEVICE):
+            raise AssertionError(f"v1's default backend did not launch its "
+                                 f"kernels: {counts}")
+        for code, (blob, message) in broken_adapt_v1_blobs().items():
+            bad = tmp / f"bad{code}.v1"
+            bad.write_bytes(blob)
+            got = run_cli(cli, ["-d", "-i", str(bad),
+                                "-o", str(tmp / "bad.out")])[:2]
+            want = run_cli(cli, ["-d", "--backend=native", "-i", str(bad),
+                                 "-o", str(tmp / "bad.out")])[:2]
+            if got != want or got != (code, f"ERROR: {message}\n"):
+                raise AssertionError(f"broken blob {code}: torch {got}, "
+                                     f"native {want}")
+            log(f"cli v1 default (torch) on the broken blob {code}: exit "
+                f"{got[0]}, {got[1].strip()!r} == native")
+
+        # -- the module entry, a process of its own, on the card -----------
+        part = tmp / "in16.raw"
+        part.write_bytes(data[: 16 << 20])
+        rc, err, _ = run_cli(cli, [*enc_argv, "-i", str(part), "-o",
+                                   str(tmp / "in16.v3")])
+        if rc:
+            raise AssertionError(f"cli 16 MiB: {err}")
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(root))
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "huffman_codec_tpu_torch",
+                            *enc_argv, "-i", str(part), "-o",
+                            str(tmp / "sub.v3")], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=300)
+        sub_s = time.perf_counter() - t
+        if r.returncode or (tmp / "sub.v3").read_bytes() != (
+                tmp / "in16.v3").read_bytes():
+            raise AssertionError(f"python -m huffman_codec_tpu_torch: exit "
+                                 f"{r.returncode}: {r.stderr[-2000:]}")
+        log(f"python -m huffman_codec_tpu_torch on 16 MiB: exit 0, the "
+            f"in-process bytes, {sub_s:.1f} s with the interpreter's start")
+
+        # -- --dump-tables on the card against the CPU plain path ----------
+        small = tmp / "small.raw"
+        small.write_bytes(data[:20000])
+        for argv in (["-c", "-m", "--format=v3", "--layout=sharded",
+                      "--chunk-size=4096"], ["-c", "-m", "--backend=torch"]):
+            full = [*argv, "--dump-tables", "-i", str(small), "-o",
+                    str(tmp / "small.out")]
+            gpu, cpu = run_cli(cli, full)[:2], run_cli(cli, full, "cpu")[:2]
+            if gpu != cpu or gpu[0]:
+                raise AssertionError(f"--dump-tables {argv}: the card's "
+                                     "text differs from the CPU's")
+        log("cli --dump-tables (v3 canonical, v1): the card's text == the "
+            "CPU plain path's")
+
+        # -- the profiler: the device's busy share of a 64 MiB round trip --
+        codec = TorchCodec(CodecConfig(use_diff=True, layout="sharded"))
+        t = time.perf_counter()
+        with device_trace(str(tmp / "trace")) as path:
+            rt = codec.decode(codec.encode(data))
+            torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t
+        if rt != data:
+            raise AssertionError("traced round trip failed")
+        share = busy_share(path)
+        log(f"profiler: 64 MiB sharded -m encode + decode traced in "
+            f"{traced_s:.3f} s (export included); trace window "
+            f"{share['window_ms']:.3f} ms, CUDA kernels busy "
+            f"{share['kernel_busy_ms']:.3f} ms = "
+            f"{100 * share['busy_share']:.2f}% of it, "
+            f"{share['kernel_events']} kernel events; copies and sets "
+            f"{share['copy_and_set_ms']:.3f} ms; kernels or copies busy "
+            f"{100 * share['with_copies_share']:.2f}%, so the device idles "
+            f"{100 * share['idle_share']:.2f}%")
+        log("profiler top 5 kernels: " + json.dumps(share["top5"]))
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2141,6 +2375,9 @@ def main() -> int:
     for row in rows:
         row["launches_fgk"] = flaunches[row["name"]]
     rows += fgk_rows
+    claunches = cli_path(K, TorchCodec, CodecConfig, x)
+    for row in rows:
+        row["launches_cli"] = claunches[row["name"]]
     for row in rows:  # the later phases' comparisons count as well
         row["max_abs_err"] = max(v for k, v in errs.items()
                                  if k.split(".")[0] == row["name"])

@@ -4,7 +4,8 @@ from a seed.
 The CPU tests (against the JAX package), the GPU tests and
 ``chip_smoke.py`` (kernel against plain version) all draw their edge
 batches from here, and pack the lane rows through ``pack_lane_rows``, so
-the three hold the kernels to the same cases.
+the three hold the kernels to the same cases; so too the broken v1
+adaptive blobs the decoders must refuse.
 """
 
 from __future__ import annotations
@@ -12,9 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from huffman_codec_tpu_torch.formats import make_huff_header, pack_bits_msb
 from huffman_codec_tpu_torch.models.chunked import _strip_payload
 from huffman_codec_tpu_torch.ops import kernels as K
 from huffman_codec_tpu_torch.ops.canonical import assign_codes
+from huffman_codec_tpu_torch.pyref.fgk import fgk_encode
 
 N_SYM = 256
 
@@ -451,3 +454,26 @@ def fgk_deep_row(seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     body = _no_three_runs(_fibonacci(25), rng)
     return np.r_[body, np.arange(200, 205, dtype=np.uint8)]
+
+
+def adapt_v1_blob(payload: bytes) -> bytes:
+    """Raw payload bytes FGK-coded into a v1 adaptive blob (flags:
+    adaptive only), so that a payload can be broken inside the Huffman
+    coding."""
+    return make_huff_header(len(payload), False, True) + pack_bits_msb(
+        fgk_encode(payload))
+
+
+def broken_adapt_v1_blobs() -> dict:
+    """The reference's exit code -> (a v1 adaptive blob, its message): one
+    8 x 8 tile read horizontally whose stream decodes past the tile (13),
+    ends inside it (14), or leaves bytes after it (15)."""
+    tile = (8).to_bytes(8, "big") * 3 + b"\x80"
+    return {
+        13: (adapt_v1_blob(tile + b"AAA" + bytes([200])),
+             "invalid adaptive block RLE file contents"),
+        14: (adapt_v1_blob(tile + b"AB"),
+             "unexpected end of adaptive block RLE data"),
+        15: (adapt_v1_blob(tile + bytes(range(64)) + b"ZZ"),
+             "leftover data of adaptive block RLE detected"),
+    }

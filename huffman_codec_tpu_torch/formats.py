@@ -1,7 +1,7 @@
 """Wire constants of the v3 container, what ``decode()`` needs to tell a
-v1 or v2 blob apart and the v1 headers, kept here so the port depends on
-nothing of the JAX package (values from huffman_codec_tpu/formats.py and
-huffman_codec_tpu/models/chunked.py).
+v1 or v2 blob apart, the v1 headers and the v1 bit order, kept here so the
+port depends on nothing of the JAX package (values from
+huffman_codec_tpu/formats.py and huffman_codec_tpu/models/chunked.py).
 
 v1 is the reference-compatible format,
 ``[byteCount u64 LE][flags u8][huffman bits, MSB-first, 0-padded]``, where
@@ -52,6 +52,15 @@ def block_count(width: int, height: int, block_size: int) -> int:
     return -(-width // block_size) * -(-height // block_size)
 
 
+def make_adapt_rle_header(width: int, height: int, block_size: int,
+                          scan_dirs) -> bytes:
+    """The v1 adaptive header, ``[W u64 BE][H u64 BE][bs u64 BE]`` and a
+    direction bit a tile (1 = horizontal), MSB-first, 0-padded. The
+    big-endian u64s are the opposite of the outer header's byteCount."""
+    return struct.pack(">QQQ", width, height, block_size) + pack_bits_msb(
+        int(bool(d)) for d in scan_dirs)
+
+
 def parse_adapt_rle_header(data: bytes):
     """The v1 adaptive header at the start of a decoded stream,
     ``[W u64 BE][H u64 BE][bs u64 BE][a direction bit a tile, MSB-first]``
@@ -68,3 +77,24 @@ def parse_adapt_rle_header(data: bytes):
     dirs = [bool((data[24 + i // 8] >> (7 - i % 8)) & 1)
             for i in range(n_blocks)]
     return width, height, block_size, dirs, 24 + n_dir_bytes
+
+
+def pack_bits_msb(bits) -> bytes:
+    """Pack an iterable of 0/1 into bytes MSB-first, zero-padded (the v1
+    payload's bit order)."""
+    out = bytearray()
+    acc = n = 0
+    for b in bits:
+        acc = (acc << 1) | (b & 1)
+        n += 1
+        if n == 8:
+            out.append(acc)
+            acc = n = 0
+    if n:
+        out.append(acc << (8 - n))
+    return bytes(out)
+
+
+def unpack_bits_msb(data: bytes) -> list[int]:
+    """Bytes exploded into bits, MSB-first."""
+    return [(byte >> i) & 1 for byte in data for i in range(7, -1, -1)]

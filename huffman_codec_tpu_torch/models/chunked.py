@@ -401,16 +401,18 @@ class TorchCodec:
 
     def __init__(self, config: CodecConfig | None = None, device=None):
         self.config = cfg = config or CodecConfig()
+        # the JAX package's order of checks, so that a config breaking
+        # two rules gets the same message
         if cfg.entropy not in ENTROPY:
             raise ValueError(f"unknown entropy mode {cfg.entropy}")
-        if cfg.layout not in ("global", "sharded"):
-            raise ValueError(f"unknown layout {cfg.layout}")
         if cfg.entropy == "canonical":
             if cfg.chunk_size % cfg.lane:
                 raise ValueError("chunk_size must divide by lane")
             if cfg.lane > 1 << 15:
                 raise ValueError("lane > 32768 overflows the packed "
                                  "lane-words manifest width")
+        if cfg.layout not in ("global", "sharded"):
+            raise ValueError(f"unknown layout {cfg.layout}")
         if cfg.layout == "sharded" and cfg.use_adapt:
             # adaptive chunks are bands of full matrix rows
             if cfg.chunk_size % cfg.width:

@@ -12,7 +12,9 @@ Decode runs on the device: the FGK decode, then in stream mode the MNP-5
 decode and the diff revert of the one stream. An adaptive payload
 interleaves its tile borders with the data, so finding them is a serial
 walk: ``kernels.group_tile_lens`` with one group holding every tile, then
-the tiles decode in parallel.
+the tiles decode in parallel. The walk also yields what each tile's stream
+decodes to, so a broken payload (a tile that overshoots its size, a stream
+that ends inside a tile, bytes left over) raises the reference's error.
 """
 
 from __future__ import annotations
@@ -43,6 +45,13 @@ from huffman_codec_tpu_torch.ops.diff import diff_apply
 from huffman_codec_tpu_torch.ops.fgk import n_words_for
 from huffman_codec_tpu_torch.ops.pack import bytes_to_words, chunk_bytes
 from huffman_codec_tpu_torch.ops.rle import rle_encode, rle_max_encoded_len
+
+
+# the reference's messages for a broken adaptive payload (exit codes 13,
+# 14 and 15 of its command line)
+_OVERSHOOT = "invalid adaptive block RLE file contents"
+_SHORT = "unexpected end of adaptive block RLE data"
+_LEFTOVER = "leftover data of adaptive block RLE detected"
 
 
 class V1Codec:
@@ -119,21 +128,36 @@ class V1Codec:
     def _decode_adapt(self, blob: bytes, count: int, use_diff: bool) -> bytes:
         """v1 adaptive decode: the FGK decode, the in-band header, the
         serial walk over the tile borders (the group walk kernel with one
-        group of every tile), then the tiles decoded in parallel and put
-        back, and the diff revert."""
+        group of every tile) with the reference's checks of the payload,
+        then the tiles decoded in parallel and put back, and the diff
+        revert."""
         stream = self._fgk_stream(blob, count)
         w, h, bs, dirs, hdr_len = parse_adapt_rle_header(
             stream.cpu().numpy().tobytes())
         nt = _cdiv(w, bs) * _cdiv(h, bs)
         body = stream[hdr_len:count].clone()  # a fresh, aligned buffer
         total = body.shape[0]
+        if nt == 0:
+            if total:
+                raise ValueError(_LEFTOVER)
+            return b""
         if total == 0:
-            raise ValueError("invalid adaptive block RLE payload")
+            raise ValueError(_SHORT)
         dev = self.device
         sizes = torch.from_numpy(_tile_geom_arrays(w, h, bs)).to(dev)
-        tile_lens = kernels.group_tile_lens(
+        tile_lens, decoded = kernels.group_tile_lens(
             body, torch.zeros(1, dtype=torch.int32, device=dev), sizes,
-            total, total)
+            total, total, with_decoded=True)
+        # the reference's checks, tile after tile: a tile whose stream
+        # decodes past its size, the tile the stream ends inside (only
+        # the last one reached; every overshoot comes before it), bytes
+        # left after the last tile
+        over, short, left = torch.stack([
+            (decoded > sizes).any(), (decoded < sizes).any(),
+            tile_lens.sum() != total]).tolist()
+        if over or short or left:
+            raise ValueError(_OVERSHOOT if over else
+                             _SHORT if short else _LEFTOVER)
         flat = _decode_adapt_tail(
             body, tile_lens,
             torch.from_numpy(np.asarray(dirs[:nt], bool)).to(dev), w, h, bs,

@@ -96,12 +96,16 @@ def _load():
         lib.hctpu_v1_decompress.argtypes = [
             u8p, ctypes.c_uint64, ctypes.c_int, out_t, n_t,
         ]
+        lib.hctpu_v2_compress.argtypes = [
+            u8p, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int, out_t, n_t,
+        ]
         lib.hctpu_v2_decompress.argtypes = [
             u8p, ctypes.c_uint64, ctypes.c_int, out_t, n_t,
         ]
         lib.hctpu_free.argtypes = [u8p]
         for fn in (lib.hctpu_v1_compress, lib.hctpu_v1_decompress,
-                   lib.hctpu_v2_decompress):
+                   lib.hctpu_v2_compress, lib.hctpu_v2_decompress):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -138,6 +142,15 @@ def v1_compress(data: bytes, use_diff: bool = False, use_adapt: bool = False,
 
 def v1_decompress(blob: bytes, exact: bool = False) -> bytes:
     return _call("hctpu_v1_decompress", blob, int(exact))
+
+
+def v2_compress(data: bytes, use_diff: bool = False, use_adapt: bool = False,
+                width: int = 512, chunk_size: int = 1 << 16,
+                n_threads: int = 0) -> bytes:
+    """The v2 chunked FGK container (host thread-parallel encode)."""
+    threads = n_threads or (os.cpu_count() or 1)
+    return _call("hctpu_v2_compress", data, int(use_diff), int(use_adapt),
+                 width, chunk_size, threads)
 
 
 def v2_decompress(blob: bytes, n_threads: int = 0) -> bytes:

@@ -70,7 +70,8 @@ def _check_cuda(name: str, *specs):
 def _launch(src: str, symbol: str, ptrs, ints, dev):
     fn = _build.bind(src, symbol, len(ptrs), len(ints))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(*[t.data_ptr() for t in ptrs], *[int(i) for i in ints], stream)
+    err = fn(*[None if t is None else t.data_ptr() for t in ptrs],
+             *[int(i) for i in ints], stream)
     if err:
         raise RuntimeError(f"{symbol}: CUDA error {err} at launch")
 
@@ -528,7 +529,7 @@ RLE_EXPAND_MAX = (1 << 31) - (1 << 21)
 
 
 def group_tile_lens_plain(stream, group_offs, sizes, total: int,
-                          group_cap: int):
+                          group_cap: int, with_decoded: bool = False):
     """One step per stream byte of the longest group, every group at
     once: the decoder FSM with a restart each time a tile's output size
     is reached."""
@@ -546,6 +547,7 @@ def group_tile_lens_plain(stream, group_offs, sizes, total: int,
     sz = torch.cat([sizes.view(ng, K).to(torch.int64),
                     torch.zeros((ng, 1), dtype=torch.int64, device=dev)], 1)
     lens = torch.zeros((ng, K + 1), dtype=torch.int64, device=dev)
+    decoded = torch.zeros_like(lens)
     zero = torch.zeros(ng, dtype=torch.int64, device=dev)
     t_rel, produced, match, count = zero, zero, zero - 1, zero
     for p in range(steps):
@@ -558,17 +560,23 @@ def group_tile_lens_plain(stream, group_offs, sizes, total: int,
         produced2 = produced + torch.where(is_cnt, byte, 1)
         slot = t_rel.clamp(max=K)[:, None]
         lens.scatter_add_(1, slot, active[:, None].to(torch.int64))
+        decoded.scatter_(1, slot, torch.where(
+            active[:, None], produced2[:, None], decoded.gather(1, slot)))
         done = produced2 >= sz.gather(1, slot)[:, 0]
         t_rel = torch.where(active & done, t_rel + 1, t_rel)
         produced = torch.where(active, torch.where(done, 0, produced2),
                                produced)
         match = torch.where(active, torch.where(done, -1, new_match), match)
         count = torch.where(active, torch.where(done, 0, new_count), count)
-    return lens[:, :K].reshape(-1).to(torch.int32)
+    lens = lens[:, :K].reshape(-1).to(torch.int32)
+    if with_decoded:
+        return lens, decoded[:, :K].reshape(-1).to(torch.int32)
+    return lens
 
 
 def group_tile_lens(stream: torch.Tensor, group_offs: torch.Tensor,
-                    sizes: torch.Tensor, total: int, group_cap: int):
+                    sizes: torch.Tensor, total: int, group_cap: int,
+                    with_decoded: bool = False):
     """Per-tile stream lengths from a grouped manifest.
 
     stream (N,) uint8 holds concatenated per-tile MNP-5 streams, ``total``
@@ -576,10 +584,13 @@ def group_tile_lens(stream: torch.Tensor, group_offs: torch.Tensor,
     tile's stream; sizes (ng * K,) int32 the decoded size of each tile
     (0 past the last tile). Each group is walked through the decoder FSM
     for at most ``group_cap`` bytes, and a tile ends where its decoded
-    size is reached. Returns (ng * K,) int32 lengths."""
+    size is reached. Returns (ng * K,) int32 lengths; ``with_decoded``
+    also returns what each tile's stream decodes to as walked, (ng * K,)
+    int32: its size, more where a count byte overshoots it, less for the
+    tile a group's bytes end inside, 0 for a tile never reached."""
     if stream.device.type == "cpu":
         return group_tile_lens_plain(stream, group_offs, sizes, total,
-                                     group_cap)
+                                     group_cap, with_decoded)
     dev = _check_cuda("group_tile_lens", (stream, torch.uint8, 1),
                       (group_offs, torch.int32, 1), (sizes, torch.int32, 1))
     ng = group_offs.shape[0]
@@ -587,12 +598,13 @@ def group_tile_lens(stream: torch.Tensor, group_offs: torch.Tensor,
         raise ValueError("group_tile_lens: needs a stream, and sizes "
                          "holding a whole number of tiles a group")
     lens = torch.empty_like(sizes)
+    decoded = torch.empty_like(sizes) if with_decoded else None
     _launch("group_tile_lens", "group_tile_lens_launch",
-            (stream, group_offs, sizes, lens),
+            (stream, group_offs, sizes, lens, decoded),
             (ng, sizes.shape[0] // ng, stream.shape[0], total, group_cap),
             dev)
     group_tile_lens.launches += 1
-    return lens
+    return (lens, decoded) if with_decoded else lens
 
 
 group_tile_lens.launches = 0

@@ -1,0 +1,107 @@
+"""Per-stage wall timers, device times from CUDA events, and profiler
+traces.
+
+Usage::
+
+    with StageTimer() as t:
+        with t.stage("encode", sync=out):
+            out = codec.encode(data)
+    print(t.report())
+
+    seconds = device_time(kernels.histogram256, (data, lengths))
+
+    with device_trace("/tmp/trace") as path:  # a Chrome trace, Perfetto
+        codec.encode(data)
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+
+import torch
+
+# device clocks to spin per timed run, so that the host has enqueued every
+# run before the first starts (a wrapper call costs tens of microseconds)
+QUEUE_CYCLES_PER_RUN = 400_000
+
+
+@dataclass
+class StageTimer:
+    stages: dict[str, float] = field(default_factory=dict)
+    _t0: float = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.stages.setdefault("total", time.perf_counter() - self._t0)
+
+    @contextlib.contextmanager
+    def stage(self, name: str, sync: torch.Tensor | None = None):
+        """Time one stage; pass ``sync=tensor`` to wait for the work queued
+        on that tensor's CUDA device (launches return before the device
+        has run them, so without it the time is the host's alone)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if sync is not None and sync.is_cuda:
+                torch.cuda.synchronize(sync.device)
+            self.stages[name] = self.stages.get(name, 0.0) + (
+                time.perf_counter() - t0
+            )
+
+    def report(self) -> str:
+        total = self.stages.get("total") or sum(self.stages.values())
+        lines = []
+        for name, dt in sorted(self.stages.items(), key=lambda kv: -kv[1]):
+            pct = 100.0 * dt / total if total else 0.0
+            lines.append(f"{name:>16s}  {dt * 1e3:9.2f} ms  {pct:5.1f}%")
+        return "\n".join(lines)
+
+
+def device_time(fn, args=(), reps: int = 10, warm: int = 2,
+                queued: bool = True) -> float:
+    """Seconds a call of ``fn(*args)`` takes on the current CUDA device:
+    the mean over ``reps`` runs between two CUDA events, after ``warm``
+    runs. With ``queued`` the runs are enqueued behind a spin of device
+    work, so the events time the device alone and not the host's rate of
+    launching (what a kernel costs inside a longer chain of launches);
+    without it a stage that launches faster than the host can issue shows
+    that cost."""
+    for _ in range(warm):
+        fn(*args)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES_PER_RUN * reps)
+    a.record()
+    for _ in range(reps):
+        fn(*args)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps / 1e3
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Trace the block with ``torch.profiler`` (CPU activity, and CUDA
+    activity when a GPU is present) and write it as a Chrome trace to
+    ``log_dir/trace.json``, whose path the context yields. A profiler that
+    fails to start or to export raises: no trace is better than an empty
+    one taken for a measurement."""
+    from torch.profiler import ProfilerActivity, profile
+
+    path = Path(log_dir) / "trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts, acc_events=True) as prof:
+        yield path
+    prof.export_chrome_trace(str(path))

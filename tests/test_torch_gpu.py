@@ -14,9 +14,9 @@ torch = pytest.importorskip("torch")
 
 from huffman_codec_tpu_torch import CodecConfig, TorchCodec, V1Codec  # noqa: E402
 from huffman_codec_tpu_torch.edge_cases import (  # noqa: E402
-    ODD_CONFIGS, fgk_deep_row, fgk_edge_rows, lane_edge_rows,
-    match_plain_rows, odd_config_input, pack_edge_rows, pack_lane_rows,
-    rle_edge_rows, rle_encode_edge_rows)
+    ODD_CONFIGS, broken_adapt_v1_blobs, fgk_deep_row, fgk_edge_rows,
+    lane_edge_rows, match_plain_rows, odd_config_input, pack_edge_rows,
+    pack_lane_rows, rle_edge_rows, rle_encode_edge_rows)
 from huffman_codec_tpu_torch.native import runtime  # noqa: E402
 from huffman_codec_tpu_torch.ops.fgk import n_words_for  # noqa: E402
 from huffman_codec_tpu_torch.ops.pack import chunk_bytes  # noqa: E402
@@ -683,3 +683,88 @@ def test_gpu_v1codec_equals_native(cuda, use_diff, use_adapt):
     assert blob == runtime.v1_compress(data, use_diff, use_adapt, 64)
     assert codec.decode(blob) == data
     assert runtime.v1_decompress(blob) == data
+
+
+BROKEN_V1 = broken_adapt_v1_blobs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", list(BROKEN_V1))
+def test_gpu_v1codec_broken_adaptive_payloads_raise(cuda, code):
+    blob, message = BROKEN_V1[code]
+    K.reset_launches()
+    with pytest.raises(ValueError, match=message):
+        V1Codec().decode(blob)
+    assert K.launch_counts()["group_tile_lens"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [0, 3])
+def test_group_walk_decoded_sizes_match_plain(cuda, cut):
+    x = torch.from_numpy(_image(72, 64, 13)).to(cuda)
+    stream, total, _, tl = tad.adapt_encode_fixed(x, 64, 72, 8,
+                                                  with_header=False)
+    total = int(total) - cut
+    zero = torch.zeros(1, dtype=torch.int32, device=cuda)
+    sizes = torch.from_numpy(tad._tile_geom_arrays(64, 72, 8)).to(cuda)
+    got = K.group_tile_lens(stream, zero, sizes, total, total,
+                            with_decoded=True)
+    want = K.group_tile_lens_plain(stream, zero, sizes, total, total,
+                                   with_decoded=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(got[1], sizes) == (cut == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [
+    ["--format=v3", "-m", "--layout=sharded", "--chunk-size=8192"],
+    ["--format=v3", "--layout=sharded", "--chunk-size=8192",
+     "--entropy=fgk"],
+    ["--backend=torch", "-m"],
+    ["--backend=torch", "-a", "-w", "64"],
+    ["-a", "-m", "-w", "64"]],
+    ids=["v3-sharded-m", "v3-sharded-fgk", "torch-m", "torch-a",
+         "v1-default-am"])
+def test_gpu_cli_equals_cpu_run(cuda, flags, tmp_path):
+    """The command line on the card (device left at its default) writes
+    the bytes of its run on the plain versions, and decodes them."""
+    from huffman_codec_tpu_torch import cli
+
+    data = _image(100, 64, 21).tobytes()
+    src = tmp_path / "in.raw"
+    src.write_bytes(data)
+    out = {}
+    for name, device in (("gpu", None), ("cpu", "cpu")):
+        out[name] = tmp_path / f"{name}.bin"
+        assert cli.main(["-c", *flags, "-i", str(src), "-o",
+                         str(out[name])], device=device) == 0
+    assert out["gpu"].read_bytes() == out["cpu"].read_bytes()
+    K.reset_launches()
+    dec = tmp_path / "dec.raw"
+    assert cli.main(["-d", *flags, "-i", str(out["gpu"]), "-o",
+                     str(dec)]) == 0
+    assert dec.read_bytes() == data
+    assert sum(K.launch_counts().values()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", list(BROKEN_V1))
+def test_gpu_cli_default_backend_on_broken_blobs(cuda, code, tmp_path):
+    """v1's default backend (``torch``) on the card gives the host
+    runtime's exit code and stderr line on the broken adaptive blobs."""
+    import contextlib
+    import io
+
+    from huffman_codec_tpu_torch import cli
+
+    blob, message = BROKEN_V1[code]
+    src = tmp_path / "bad.v1"
+    src.write_bytes(blob)
+    runs = []
+    for pick in ([], ["--backend=native"]):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["-d", *pick, "-i", str(src), "-o",
+                           str(tmp_path / "out")])
+        runs.append((rc, err.getvalue()))
+    assert runs[0] == runs[1] == (code, f"ERROR: {message}\n")
