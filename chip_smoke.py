@@ -85,6 +85,22 @@ the traced window that the CUDA kernels cover (the union of their
 intervals), the share that kernels or copies cover, the idle share (one
 less the latter), and the five kernels that took the most device time.
 
+The multi-GPU layer (``huffman_codec_tpu_torch/parallel/``): world 1 on
+NCCL in this process drives the five step functions of
+``parallel/mesh.py`` on the 64 MiB input (canonical with the diff model on
+and off, FGK, and the sharded-adaptive cell's search, encode and decode,
+1024 chunks or bands), launches counted; the encode outputs are held to
+the plain versions of kernels 1, 1b, 2 and 3 on the same rows, and the
+FGK step's to the host runtime's v1 encoder a chunk at a time; the
+containers assembled from the gathered outputs equal
+``TorchCodec.encode``'s (diff on), every decode returns the input, and
+each step is timed beside the single-process
+stage on the same chunks and the gathers alone. Then two ranks, each a
+process of its own: on one card both on it over gloo at 16 MiB (NCCL
+takes one rank a device), on two or more cards NCCL with a rank a card
+(up to 4) at 64 MiB; every rank's gathered outputs must equal world 1's,
+whose encode outputs are held to the plain versions the same way.
+
 Each path's kernel launches are counted from zero over its round trips.
 The encode kernels (1, 1b and 3), ``repad_words`` (beside its library
 call, one ``masked_scatter_``) and the fat-lane decode kernel are also
@@ -102,14 +118,19 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import hashlib
 import io
 import json
 import os
+import queue
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -2084,6 +2105,419 @@ def cli_path(K, TorchCodec, CodecConfig, x) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- the multi-GPU layer (parallel/) -----------------------------------------
+
+MESH_WIDTH, MESH_BAND_H = 512, 128  # the sharded-adaptive cell's geometry
+MESH_RANK_TIMEOUT = 180  # seconds a rank of the multi-process check may take
+MESH_TAIL = 12345  # bytes the multi-process check's input falls short of
+# the kernels the mesh's main path launches (kernel 4 is not among them:
+# the mesh decode takes the lanes padded; kernel 7 serves fat lanes only)
+MESH_KERNELS = ("rle_diff_encode", "rle_diff_encode_tile", "histogram256",
+                "lane_pack", "lane_decode", "rle_expand", "fgk_encode",
+                "fgk_decode")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def mesh_run(M, mesh, data: torch.Tensor, length: int, bs=None):
+    """Drive the five step functions of ``parallel.mesh`` once on one
+    input (the global array, on any device): the stream encode and decode,
+    canonical with the diff model on and off and FGK with it; the
+    adaptive search, the encode at ``bs`` (the search's pick when None)
+    and its decode, in bands of the sharded-adaptive cell. Returns
+    ({output name: tensor}, the block size)."""
+    from huffman_codec_tpu_torch.ops.adapt import candidate_sizes
+    from huffman_codec_tpu_torch.ops.fgk import n_words_for
+
+    out = {}
+    for key, diff, ent in (("canonical", True, "canonical"),
+                           ("canonical-nodiff", False, "canonical"),
+                           ("fgk", True, "fgk")):
+        nw = n_words_for(M.sharded_cap(CS, ent, LANE))
+        a, meta, tab, rl, car = M.distributed_encode_step(
+            data, length, mesh, CS, nw, diff, ent, LANE)
+        out.update({f"{key}.a": a, f"{key}.meta": meta,
+                    f"{key}.rle_lens": rl, f"{key}.carries": car})
+        if tab is not None:
+            out[f"{key}.tables"] = tab
+        out[f"{key}.decoded"] = M.distributed_decode_step(
+            a.view(a.shape[0], -1), rl, car, mesh, CS, tab, meta, diff, ent,
+            LANE)
+    w, bh = MESH_WIDTH, MESH_BAND_H
+    out["adapt.scores"] = M.distributed_adapt_search(data, mesh, w, bh)
+    if bs is None:  # the first minimum wins
+        bs = candidate_sizes(w, bh)[
+            int(np.argmin(out["adapt.scores"].cpu().numpy()))]
+    enc = M.distributed_adapt_encode_step(data, mesh, w, bh, bs, True,
+                                          "canonical", LANE)
+    out.update(zip(("adapt.a", "adapt.meta", "adapt.tables", "adapt.totals",
+                    "adapt.dirs", "adapt.tile_lens", "adapt.carries"), enc))
+    buf, lw, tab, totals, dirs, tl, car = enc
+    out["adapt.decoded"] = M.distributed_adapt_decode_step(
+        buf.view(buf.shape[0], -1), totals, tl, dirs, car, tab, lw, mesh, w,
+        bh, bs, True, LANE)
+    return out, bs
+
+
+def mesh_plain(K, M, out: dict, xd: torch.Tensor, length: int, bs: int,
+               errs: dict) -> None:
+    """Hold ``mesh_run``'s encode outputs on the input ``xd`` (the first
+    ``length`` bytes valid) to the plain versions of the kernels that made
+    them, on the same rows: kernel 1, then 2 and 3, for the canonical
+    steps (diff on and off); kernel 1b, then 2 and 3, for the adaptive
+    step at block size ``bs``; the FGK step (diff on) against the host
+    runtime's v1 encoder a chunk at a time, as ``fgk_path`` holds it (the
+    plain FGK loop runs once a symbol: far too slow at this size).
+    Tolerance 0: integer codec."""
+    from huffman_codec_tpu_torch.models.chunked import _band_winner_order
+    from huffman_codec_tpu_torch.native import runtime
+    from huffman_codec_tpu_torch.ops.canonical import (
+        assign_codes, build_lengths_pm)
+    from huffman_codec_tpu_torch.ops.diff import diff_apply
+    from huffman_codec_tpu_torch.ops.pack import chunk_bytes
+
+    dev = xd.device
+
+    def pack(key, streams, lens):
+        """Kernels 2 and 3 after the plain RLE: the step's tables, lane
+        buffers and lane words."""
+        counts = K.histogram256_plain(streams, lens)
+        same(f"histogram256.mesh_{key}", K.histogram256(streams, lens),
+             counts, errs)
+        code_lens = build_lengths_pm(counts)
+        same(f"histogram256.mesh_{key}_tables", out[f"{key}.tables"],
+             code_lens.to(torch.uint8), errs)
+        tables = (assign_codes(code_lens) | (code_lens << 26)).to(torch.int32)
+        buf, bits = K.lane_pack_plain(streams, lens, tables, LANE)
+        same(f"lane_pack.mesh_{key}", out[f"{key}.a"], buf, errs)
+        same(f"lane_pack.mesh_{key}_words", out[f"{key}.meta"],
+             ((bits + 31) >> 5).to(torch.int32), errs)
+
+    C = xd.numel() // CS
+    chunks = xd.view(C, CS)
+    in_lens = (length - torch.arange(C, device=dev, dtype=torch.int64) * CS
+               ).clamp(0, CS).to(torch.int32)
+    car = torch.cat([chunks.new_zeros(1), chunks[:-1, -1]])
+    cap = M.sharded_cap(CS, "canonical", LANE)
+    for key, diff in (("canonical", True), ("canonical-nodiff", False)):
+        st, rl = K.rle_diff_encode_plain(chunks, in_lens, car, diff, cap)
+        same(f"rle_diff_encode.mesh_{key}_rle_lens", out[f"{key}.rle_lens"],
+             rl, errs)
+        same(f"rle_diff_encode.mesh_{key}_carries", out[f"{key}.carries"],
+             car if diff else torch.zeros_like(car), errs)
+        pack(key, st, rl)
+        del st
+
+    w, bh = MESH_WIDTH, MESH_BAND_H
+    bands = xd.view(-1, w * bh)
+    nb = bands.shape[0]
+    acar = torch.cat([bands.new_zeros(1), bands[:-1, -1]])
+    same(f"{K.TILE_MODE}.mesh_adapt_carries", out["adapt.carries"], acar,
+         errs)
+    win, dirs, tile_lens = _band_winner_order(diff_apply(bands, acar), w, bh,
+                                              bs)
+    same(f"{K.TILE_MODE}.mesh_adapt_dirs", out["adapt.dirs"], dirs, errs)
+    same(f"{K.TILE_MODE}.mesh_adapt_tile_lens", out["adapt.tile_lens"],
+         tile_lens, errs)
+    st, tot = K.rle_diff_encode_plain(
+        win, torch.full((nb,), w * bh, dtype=torch.int32, device=dev),
+        torch.zeros(nb, dtype=torch.uint8, device=dev), False,
+        M.sharded_cap(w * bh, "canonical", LANE), bs * bs)
+    same(f"{K.TILE_MODE}.mesh_adapt_totals", out["adapt.totals"], tot, errs)
+    pack("adapt", st, tot)
+    del st, win
+
+    # RLE restarts every chunk, so a chunk's FGK stream is the v1 body of
+    # its diffed bytes (chunk c's carry is chunk c - 1's last byte)
+    src = xd[:length].cpu().numpy()
+    dx = src.copy()
+    dx[1:] -= src[:-1]  # uint8 wraps
+    body, counts = [], []
+    for c in range(C):
+        seg = dx[c * CS:(c + 1) * CS]
+        v1 = runtime.v1_compress(seg.tobytes()) if seg.size else bytes(9)
+        body.append(v1[9:])
+        counts.append(int.from_bytes(v1[:8], "little"))
+    same("fgk_encode.mesh_vs_v1",
+         chunk_bytes(out["fgk.a"], out["fgk.meta"]).cpu(),
+         torch.frombuffer(bytearray(b"".join(body)), dtype=torch.uint8), errs)
+    same("fgk_encode.mesh_rle_lens_vs_v1", out["fgk.rle_lens"].cpu(),
+         torch.tensor(counts, dtype=torch.int32), errs)
+    same("fgk_encode.mesh_carries", out["fgk.carries"], car, errs)
+
+
+def mesh_container(TorchCodec, CodecConfig, out: dict, key: str,
+                   data: bytes, bs: int):
+    """The v3 container assembled from the mesh outputs ``key`` of a whole
+    input (no partial tail), the way ``TorchCodec.encode`` assembles its
+    steps. Returns (the codec of that config, the container)."""
+    from huffman_codec_tpu_torch.models.chunked import (
+        _chunk_bits, _dense_payload, _words_to_wire)
+
+    ent = "fgk" if key == "fgk" else "canonical"
+    adapt = key == "adapt"
+    codec = TorchCodec(CodecConfig(
+        use_diff=key != "canonical-nodiff", use_adapt=adapt,
+        width=MESH_WIDTH, chunk_size=CS, lane=LANE, entropy=ent,
+        layout="sharded"))
+    meta = out[f"{key}.meta"]
+    rl, car, meta_np = (out[k].cpu().numpy() for k in (
+        "adapt.totals" if adapt else f"{key}.rle_lens", f"{key}.carries",
+        f"{key}.meta"))
+    canonical = ent == "canonical"
+    adapt_meta = (MESH_WIDTH, len(data) // MESH_WIDTH, bs,
+                  out["adapt.dirs"].cpu().numpy().reshape(-1),
+                  out["adapt.tile_lens"].cpu().numpy().reshape(-1),
+                  False) if adapt else None
+    blob = codec._container(
+        _words_to_wire(_dense_payload(out[f"{key}.a"], meta, ent)),
+        len(data), int(rl.sum()), _chunk_bits(meta_np, ent),
+        out[f"{key}.tables"].cpu().numpy() if canonical else None,
+        meta_np if canonical else None, (rl, car), zlib.crc32(data),
+        adapt_meta=adapt_meta)
+    return codec, blob
+
+
+def _mesh_rank(rank: int, world: int, port: int, backend: str, path: str,
+               length: int, bs: int, q) -> None:
+    """One rank of the multi-process mesh check, in a spawned process:
+    ``mesh_run`` on the input file over a group of ``world`` ranks on
+    ``backend``. Puts (rank, {output: sha256}, seconds, device) on ``q``,
+    or (rank, None, the traceback, None) and exits non-zero."""
+    os.environ["LOCAL_RANK"] = str(rank)  # one host: what torchrun sets
+    try:
+        import torch.distributed as dist
+
+        from huffman_codec_tpu_torch.parallel import distributed as D
+        from huffman_codec_tpu_torch.parallel import mesh as M
+
+        t = time.perf_counter()
+        if not D.init_distributed(f"localhost:{port}", world, rank,
+                                  backend=backend):
+            raise RuntimeError("init_distributed started no group")
+        try:
+            mesh = M.default_mesh(world)
+            data = torch.from_numpy(np.fromfile(path, np.uint8))
+            out, _ = mesh_run(M, mesh, data, length, bs)
+            sums = {k: digest(v) for k, v in out.items()}
+        finally:
+            dist.destroy_process_group()
+        q.put((rank, sums, time.perf_counter() - t, str(mesh.device)))
+    except Exception:
+        q.put((rank, None, traceback.format_exc(), None))
+        raise
+
+
+def mesh_ranks(K, M, mesh1, x: np.ndarray, errs: dict) -> None:
+    """Two or more ranks, each a process of its own (spawned with
+    ``torch.multiprocessing``): every rank's gathered outputs must equal
+    world 1's on the same input (itself held to the plain versions by
+    ``mesh_plain``), the adaptive search's scores the sum of
+    each rank's block scored alone (they depend on the world size). One
+    card: two ranks on it over gloo, at 16 MiB. Two or more cards: NCCL,
+    a rank a card (up to 4), at 64 MiB. A rank that fails, hangs or
+    differs fails the run."""
+    from huffman_codec_tpu_torch.ops.adapt import (
+        _adapt_score_v3, candidate_sizes)
+    from huffman_codec_tpu_torch.ops.diff import diff_apply
+
+    n_dev = torch.cuda.device_count()
+    if n_dev >= 2:
+        backend, world, n_in = "nccl", min(4, n_dev), len(x)
+        why = f"{n_dev} cards: NCCL, one rank a card"
+    else:
+        backend, world, n_in = "gloo", 2, 16 << 20
+        why = ("one card: NCCL takes one rank a device, so the phase "
+               "chooses gloo, both ranks on cuda:0 (a check of the rank "
+               "logic, not a scaling figure)")
+    length = n_in - MESH_TAIL
+    xd = torch.from_numpy(x[:n_in].copy()).to(mesh1.device)
+    ref, bs = mesh_run(M, mesh1, xd, length)
+    mesh_plain(K, M, ref, xd, length, bs, errs)
+    want = {k: digest(v) for k, v in ref.items()}
+    cs = MESH_WIDTH * MESH_BAND_H
+    blocks = xd.view(world, -1)
+    want["adapt.scores"] = digest(sum(
+        torch.stack([_adapt_score_v3(diff_apply(b), MESH_WIDTH,
+                                     b.numel() // MESH_WIDTH, c)
+                     for c in candidate_sizes(MESH_WIDTH, MESH_BAND_H)])
+        for b in blocks).to(torch.int32))
+    del ref, xd, blocks
+    tmp = Path(tempfile.mkdtemp(prefix="hctpu-mesh-"))  # outside the repo
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    procs = []
+    try:
+        path = tmp / "in.raw"
+        x[:n_in].tofile(path)
+        port = free_port()
+        t = time.perf_counter()
+        procs = [ctx.Process(target=_mesh_rank,
+                             args=(r, world, port, backend, str(path),
+                                   length, bs, q))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        got = {}
+        for _ in range(world):
+            try:
+                r, sums, info, dev = q.get(timeout=MESH_RANK_TIMEOUT)
+            except queue.Empty:
+                raise AssertionError(f"mesh: a rank gave no result within "
+                                     f"{MESH_RANK_TIMEOUT} s") from None
+            if sums is None:
+                raise AssertionError(f"mesh: rank {r} failed:\n{info}")
+            got[r] = (sums, info, dev)
+        for p in procs:
+            p.join(timeout=60)
+            if p.exitcode != 0:
+                raise AssertionError(f"mesh: a rank exited {p.exitcode}")
+        wall = time.perf_counter() - t
+        for r, (sums, _, _) in got.items():
+            bad = sorted(k for k in want.keys() | sums.keys()
+                         if sums.get(k) != want.get(k))
+            if bad:
+                raise AssertionError(f"mesh: rank {r} of {world} differs "
+                                     f"from world 1 in {bad}")
+        log(f"mesh {world} ranks on {backend} ({why}): {n_in} B, "
+            f"{n_in // CS} chunks, the input {MESH_TAIL} B short; "
+            f"{len(want)} gathered outputs on every rank == world 1's "
+            f"(the search's scores == each block scored alone, summed; bs "
+            f"{bs}); ranks on " + ", ".join(
+                f"{got[r][2]} {got[r][1]:.2f} s" for r in sorted(got))
+            + f" (start to result); {wall:.1f} s with the spawn")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict) -> dict:
+    """The multi-GPU layer on the card. (a) World 1 on NCCL in this
+    process: the 64 MiB main path through the five step functions
+    (``mesh_run``), launches counted from zero; the encode outputs held to
+    the kernels' plain versions on the same rows (``mesh_plain``); the
+    containers assembled
+    from the outputs equal ``TorchCodec.encode``'s (diff on: canonical,
+    FGK and sharded adaptive; without diff the mesh's carries are zero,
+    as JAX's are, so that container is decoded only), every decode
+    returns the input; each step timed beside the single-process stage
+    on the same 1024 chunks. (b) ``mesh_ranks``. Returns (a)'s launch
+    counts."""
+    import torch.distributed as dist
+
+    from huffman_codec_tpu_torch.models.chunked import _encode_sharded_stage
+    from huffman_codec_tpu_torch.parallel import mesh as M
+
+    dist.init_process_group("nccl", world_size=1, rank=0,
+                            init_method=f"tcp://localhost:{free_port()}")
+    try:
+        mesh = M.default_mesh(1)
+        data = x.tobytes()
+        n = len(data)
+        xd = torch.from_numpy(x).to(mesh.device)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        out, bs = mesh_run(M, mesh, xd, n)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        missing = [k for k in MESH_KERNELS if not launches[k]]
+        if missing:
+            raise AssertionError(f"mesh: {missing} never launched: "
+                                 f"{launches}")
+        t = time.perf_counter()
+        mesh_plain(K, M, out, xd, n, bs, errs)
+        log(f"mesh world 1, {n // CS} chunks: the encode outputs == the "
+            "plain versions on the same rows (kernels 1, 2, 3 on the "
+            "canonical steps, diff on and off; 1b, 2, 3 on the adaptive "
+            "step; the FGK step == the host runtime's v1_compress a chunk "
+            f"at a time), {time.perf_counter() - t:.1f} s")
+        for key in ("canonical", "canonical-nodiff", "fgk", "adapt"):
+            if out[f"{key}.decoded"].cpu().numpy().tobytes() != data:
+                raise AssertionError(f"mesh: the {key} decode did not "
+                                     "return the input")
+        sizes = {}
+        for key in ("canonical", "fgk", "adapt", "canonical-nodiff"):
+            codec, blob = mesh_container(TorchCodec, CodecConfig, out, key,
+                                         data, bs)
+            if key != "canonical-nodiff" and blob != codec.encode(data):
+                raise AssertionError(f"mesh: the {key} container differs "
+                                     "from TorchCodec.encode's")
+            if codec.decode(blob) != data:
+                raise AssertionError(f"mesh: TorchCodec cannot read the "
+                                     f"{key} container")
+            sizes[key] = len(blob)
+        log(f"mesh world 1 on {mesh.backend} ({mesh.device}), {n} B, "
+            f"{n // CS} chunks: "
+            f"containers == TorchCodec.encode's (canonical, fgk, adaptive "
+            f"bs {bs}; diff on), {sizes} B; every decode exact; launches "
+            f"{launches}")
+
+        # -- device times beside the single-process stages --------------
+        buf, lw, tab, rl, car = (out[f"canonical.{k}"] for k in (
+            "a", "meta", "tables", "rle_lens", "carries"))
+        words = buf.view(buf.shape[0], -1)
+        codec, blob = mesh_container(TorchCodec, CodecConfig, out,
+                                     "canonical", data, bs)
+        hdr, staged = codec.stage_decode_steps(blob)
+        w, bh = MESH_WIDTH, MESH_BAND_H
+        abuf, alw, atab, atot, adirs, atl, acar = (out[f"adapt.{k}"] for k in (
+            "a", "meta", "tables", "totals", "dirs", "tile_lens", "carries"))
+        dec = out["canonical.decoded"]
+        # kernel 5 on the mesh's lanes at their full stride, and on the
+        # single-process path's, repadded to the fattest lane's bucket
+        st = staged[0]
+        rp = K.repad_words(st["flat"], st["lw"], hdr["wl_bucket"]).view(
+            buf.shape[0], buf.shape[1], -1)
+        fns = {
+            "encode": lambda: M.distributed_encode_step(
+                xd, n, mesh, CS, 0, True, "canonical", LANE),
+            "encode_single": lambda: _encode_sharded_stage(
+                xd, n, 0, True, CS, n // CS, LANE),
+            "encode_gathers": lambda: [M._gather(mesh, t)
+                                       for t in (buf, lw, tab, rl, car)],
+            "decode": lambda: M.distributed_decode_step(
+                words, rl, car, mesh, CS, tab, lw, True, "canonical", LANE),
+            "decode_single": lambda: codec.run_decode_steps(hdr, staged),
+            "decode_gather": lambda: M._gather(mesh, dec),
+            "lane_decode_full_stride": lambda: K.lane_decode(buf, tab, rl,
+                                                             LANE),
+            "lane_decode_repadded": lambda: K.lane_decode(
+                rp, st["tables"], st["rl"], LANE, hdr["max_len_bucket"]),
+            "adapt_search": lambda: M.distributed_adapt_search(xd, mesh, w,
+                                                               bh),
+            "adapt_encode": lambda: M.distributed_adapt_encode_step(
+                xd, mesh, w, bh, bs, True, "canonical", LANE),
+            "adapt_decode": lambda: M.distributed_adapt_decode_step(
+                abuf.view(abuf.shape[0], -1), atot, atl, adirs, acar, atab,
+                alw, mesh, w, bh, bs, True, LANE),
+        }
+        ms = {k: cuda_ms(f, reps=5, warm=1, queued=True)
+              for k, f in fns.items()}
+        log(f"mesh world 1, {n} B, device ms (queued; the single-process "
+            "stage on the same 1024 chunks, run_decode_steps with its "
+            "repad of the dense words; the gathers alone; kernel 5 on the "
+            "mesh's lanes at their full stride and on the repadded ones): "
+            + json.dumps({k: round(v, 4) for k, v in ms.items()}))
+        del out, fns, buf, lw, tab, rl, car, words, abuf, alw, atab, atot
+        del adirs, atl, acar, dec, staged, st, rp
+        torch.cuda.empty_cache()
+        mesh_ranks(K, M, mesh, x, errs)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2378,6 +2812,9 @@ def main() -> int:
     claunches = cli_path(K, TorchCodec, CodecConfig, x)
     for row in rows:
         row["launches_cli"] = claunches[row["name"]]
+    mlaunches = mesh_path(K, TorchCodec, CodecConfig, x, errs)
+    for row in rows:
+        row["launches_mesh"] = mlaunches[row["name"]]
     for row in rows:  # the later phases' comparisons count as well
         row["max_abs_err"] = max(v for k, v in errs.items()
                                  if k.split(".")[0] == row["name"])

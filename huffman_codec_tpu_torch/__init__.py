@@ -13,6 +13,8 @@ imports nothing of JAX nor of the JAX package.
 - ``pyref``   — the exact pure-Python model of the v1 format
 - ``utils``   — timers, profiler traces, metrics, table dumps
 - ``cli``     — the command line, ``python -m huffman_codec_tpu_torch``
+- ``parallel`` — data-parallel steps over a ``torch.distributed`` group
+                (one process a rank), and the elastic re-dispatch helpers
 """
 
 from huffman_codec_tpu_torch.formats import (

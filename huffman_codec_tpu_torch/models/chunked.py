@@ -200,14 +200,16 @@ def _words_to_wire(words: torch.Tensor) -> bytes:
 
 
 def _entropy_encode(chunks: torch.Tensor, lens: torch.Tensor, entropy: str,
-                    lane: int):
+                    lane: int, n_words: int | None = None):
     """Chunk rows (C, L) uint8 -> (a, meta, tables) on the device:
     canonical -> (lane_buf (C, n_lanes, W), lane_words (C, n_lanes),
-    tables); fgk -> (words (C, n_words), bits (C,), None)."""
+    tables); fgk -> (words (C, n_words), bits (C,), None), ``n_words``
+    defaulting to the worst case of an L-symbol row."""
     if entropy == "canonical":
         return canonical_encode_batch(chunks, lens, lane=lane)
-    words, bits = kernels.fgk_encode(chunks, lens,
-                                     n_words_for(chunks.shape[1]))
+    words, bits = kernels.fgk_encode(
+        chunks, lens, n_words_for(chunks.shape[1]) if n_words is None
+        else n_words)
     return words, bits, None
 
 
@@ -229,28 +231,33 @@ def _chunk_bits(meta: np.ndarray, entropy: str) -> list:
     return meta.astype(np.int64).tolist()
 
 
-def _encode_sharded_stage(data: torch.Tensor, length: int, carry0: int,
-                          use_diff: bool, chunk_size: int, n_chunks: int,
-                          lane: int, entropy: str = "canonical"):
+def _encode_sharded_stage(data: torch.Tensor, length,
+                          carry0: int | torch.Tensor, use_diff: bool,
+                          chunk_size: int, n_chunks: int, lane: int,
+                          entropy: str = "canonical",
+                          n_words: int | None = None):
     """Per-chunk diff (with carry) -> per-chunk RLE -> entropy coding.
 
     ``data`` is (n_chunks * chunk_size,) uint8 on the device, of which the
-    first ``length`` bytes are input; ``carry0`` is the input byte before
-    it (0 at the stream start). Returns ``_entropy_encode``'s (a, meta,
+    first ``length`` bytes (an int or a 0-d tensor; below 0 or past the
+    data it clips) are input; ``carry0`` is the input byte before it (0
+    at the stream start), an int or a (1,) uint8 tensor on the device,
+    which is read without synchronising. ``n_words`` sizes FGK's word
+    rows (``_entropy_encode``). Returns ``_entropy_encode``'s (a, meta,
     tables), then (rle_lens, carries), on the device."""
     dev = data.device
     chunks = data.view(n_chunks, chunk_size)
     starts = torch.arange(n_chunks, device=dev, dtype=torch.int64) * chunk_size
     in_lens = (length - starts).clamp(0, chunk_size).to(torch.int32)
+    carry0 = torch.as_tensor(carry0, dtype=torch.uint8, device=dev).view(1)
     # interior chunks are full, so [:, -1] is the next chunk's carry; the
     # chunks after a partial tail have in_lens 0 and encode nothing
-    carries = torch.cat([torch.tensor([carry0], dtype=torch.uint8, device=dev),
-                         chunks[:-1, -1]])
+    carries = torch.cat([carry0, chunks[:-1, -1]])
     cap = _sharded_cap(chunk_size, entropy, lane)
     streams, rle_lens = kernels.rle_diff_encode(chunks, in_lens, carries,
                                                 use_diff, cap)
-    return (*_entropy_encode(streams, rle_lens, entropy, lane), rle_lens,
-            carries)
+    return (*_entropy_encode(streams, rle_lens, entropy, lane, n_words),
+            rle_lens, carries)
 
 
 def _chunkify(stream: torch.Tensor, total: torch.Tensor, chunk_size: int,

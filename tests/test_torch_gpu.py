@@ -768,3 +768,99 @@ def test_gpu_cli_default_backend_on_broken_blobs(cuda, code, tmp_path):
                            str(tmp_path / "out")])
         runs.append((rc, err.getvalue()))
     assert runs[0] == runs[1] == (code, f"ERROR: {message}\n")
+
+
+MESH_CASES = {  # name -> (use_diff, entropy)
+    "canonical-diff": (True, "canonical"),
+    "canonical": (False, "canonical"),
+    "fgk-diff": (True, "fgk"),
+}
+
+
+@pytest.fixture
+def nccl_world1(cuda):
+    """An NCCL group of one rank in this process, its mesh on the card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from huffman_codec_tpu_torch.parallel import mesh as M
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield M.default_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MESH_CASES))
+def test_mesh_world1_nccl_equals_cpu_plain_path(nccl_world1, name):
+    """``distributed_encode_step`` on NCCL at world 1 (chunk 1024, lane
+    128, 8 chunks, a partial tail) equals the single-process stage run
+    on the CPU's plain versions (zero carries without diff, as the JAX
+    mesh has them), and ``distributed_decode_step`` returns the input."""
+    from huffman_codec_tpu_torch.models.chunked import _encode_sharded_stage
+    from huffman_codec_tpu_torch.parallel import mesh as M
+
+    use_diff, ent = MESH_CASES[name]
+    cs, nc, lane = 1024, 8, 128
+    raw = _image(64, 128, 31)
+    n = raw.size - 301
+    nw = n_words_for(M.sharded_cap(cs, ent, lane))
+    mesh = nccl_world1
+    K.reset_launches()
+    got = M.distributed_encode_step(torch.from_numpy(raw).to(mesh.device),
+                                    n, mesh, cs, nw, use_diff, ent, lane)
+    a, meta, tab, rl, car = _encode_sharded_stage(
+        torch.from_numpy(raw), n, 0, use_diff, cs, nc, lane, ent, nw)
+    if not use_diff:
+        car = torch.zeros_like(car)
+    for g, w in zip(got, (a, meta, tab, rl, car)):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.is_cuda and torch.equal(g.cpu(), w)
+    dec = M.distributed_decode_step(got[0].view(nc, -1), got[3], got[4],
+                                    mesh, cs, got[2], got[1], use_diff, ent,
+                                    lane)
+    assert dec[:n].cpu().numpy().tobytes() == raw[:n].tobytes()
+    counts = K.launch_counts()
+    assert counts["rle_diff_encode"] and counts["rle_expand"]
+
+
+@pytest.mark.cuda
+def test_mesh_adapt_world1_nccl_equals_cpu_plain_path(nccl_world1):
+    """The adaptive search, encode and decode on NCCL at world 1 against
+    the single-process functions on the CPU's plain versions."""
+    from huffman_codec_tpu_torch.models.chunked import (
+        _encode_sharded_adapt_stage)
+    from huffman_codec_tpu_torch.ops.diff import diff_apply
+    from huffman_codec_tpu_torch.parallel import mesh as M
+
+    w, bh, lane = 128, 16, 64
+    raw = _image(64, w, 33)
+    mesh = nccl_world1
+    x = torch.from_numpy(raw)
+    scores = M.distributed_adapt_search(x, mesh, w, bh)
+    want = torch.stack([tad._adapt_score_v3(diff_apply(x), w, 64, b)
+                        for b in tad.candidate_sizes(w, bh)])
+    assert torch.equal(scores.cpu(), want.to(torch.int32))
+    bs = 8
+    got = M.distributed_adapt_encode_step(x, mesh, w, bh, bs, True,
+                                          "canonical", lane)
+    bands = x.view(-1, w * bh)
+    car = torch.cat([torch.zeros(1, dtype=torch.uint8), bands[:-1, -1]])
+    ref = _encode_sharded_adapt_stage(bands, car, True, w, bh, bs,
+                                      M.sharded_cap(w * bh, "canonical",
+                                                    lane), lane)
+    for g, r in zip(got, (*ref, car)):
+        assert torch.equal(g.cpu(), r)
+    buf, lw, tab, tot, dirs, tl, c = got
+    dec = M.distributed_adapt_decode_step(buf.view(buf.shape[0], -1), tot,
+                                          tl, dirs, c, tab, lw, mesh, w, bh,
+                                          bs, True, lane)
+    assert dec.cpu().numpy().tobytes() == raw.tobytes()
