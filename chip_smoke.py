@@ -101,6 +101,24 @@ takes one rank a device), on two or more cards NCCL with a rank a card
 (up to 4) at 64 MiB; every rank's gathered outputs must equal world 1's,
 whose encode outputs are held to the plain versions the same way.
 
+The step pipeline of the main path (64 MiB sharded, diff on and off):
+``encode`` uploads every step from pinned memory on a copy stream and
+dispatches it (a CUDA graph replay from the second step of a geometry
+on) before it fetches any, then fetches in two waves, the manifests and
+the used payload prefixes; ``decode`` stages every step before it runs
+any, replays one graph a step and fetches the bytes once. The phase
+holds its containers to the eager single-step path (each step fetched
+before the next is uploaded) and, on the 16 MiB + 12,345 B prefix, to the
+CPU plain path; every output of a replayed encode or decode step to the
+same step run launch by launch; runs the dispatch halves of both under
+``torch.cuda.set_sync_debug_mode("error")``; checks that the launch counts
+(a replay adds what its capture recorded) equal an eager round trip's;
+prints the stage split of the end-to-end encode and decode (host staging,
+H2D, device, D2H, payload bytes, crc32, container; parse, bytes; device
+stages from CUDA events), the device encode and decode with graphs beside the eager
+launches (queued and host-paced), and the traced idle share of a round
+trip.
+
 Each path's kernel launches are counted from zero over its round trips.
 The encode kernels (1, 1b and 3), ``repad_words`` (beside its library
 call, one ``masked_scatter_``) and the fat-lane decode kernel are also
@@ -1391,6 +1409,7 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
         {k: round(cuda_ms(f, reps=5), 3) for k, f in enc_stages.items()})
     del hor, ver, tfull, enc_stages
     staged = codec.stage_adapt_bands(blob, hdr, 0, STEP)
+    torch.cuda.synchronize()  # the staged copies ran on the copy stream
     st = staged[0]
     words = K.repad_words(st["flat"], st["lw"], hdr["wl_bucket"])
     streams = canonical_decode_batch(
@@ -2260,7 +2279,7 @@ def mesh_container(TorchCodec, CodecConfig, out: dict, key: str,
     input (no partial tail), the way ``TorchCodec.encode`` assembles its
     steps. Returns (the codec of that config, the container)."""
     from huffman_codec_tpu_torch.models.chunked import (
-        _chunk_bits, _dense_payload, _words_to_wire)
+        _chunk_bits, _dense_payload, _wire_payload)
 
     ent = "fgk" if key == "fgk" else "canonical"
     adapt = key == "adapt"
@@ -2278,7 +2297,8 @@ def mesh_container(TorchCodec, CodecConfig, out: dict, key: str,
                   out["adapt.tile_lens"].cpu().numpy().reshape(-1),
                   False) if adapt else None
     blob = codec._container(
-        _words_to_wire(_dense_payload(out[f"{key}.a"], meta, ent)),
+        _wire_payload(_dense_payload(out[f"{key}.a"], meta, ent), meta,
+                      ent),
         len(data), int(rl.sum()), _chunk_bits(meta_np, ent),
         out[f"{key}.tables"].cpu().numpy() if canonical else None,
         meta_np if canonical else None, (rl, car), zlib.crc32(data),
@@ -2470,6 +2490,7 @@ def mesh_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict) -> dict:
         codec, blob = mesh_container(TorchCodec, CodecConfig, out,
                                      "canonical", data, bs)
         hdr, staged = codec.stage_decode_steps(blob)
+        torch.cuda.synchronize()  # the staged copies ran on the copy stream
         w, bh = MESH_WIDTH, MESH_BAND_H
         abuf, alw, atab, atot, adirs, atl, acar = (out[f"adapt.{k}"] for k in (
             "a", "meta", "tables", "totals", "dirs", "tile_lens", "carries"))
@@ -2515,6 +2536,227 @@ def mesh_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict) -> dict:
         mesh_ranks(K, M, mesh, x, errs)
     finally:
         dist.destroy_process_group()
+    return launches
+
+
+# -- the step pipeline on the main path ----------------------------------------
+
+MAIN_KERNELS = ("rle_diff_encode", "histogram256", "lane_pack",
+                "repad_words", "lane_decode", "rle_expand")
+SPLIT_RUNS = 3  # timed end-to-end runs of each stage split
+
+
+def eager_encode(codec, data: bytes) -> bytes:
+    """The sharded stream encode one step at a time, launch by launch, each
+    step fetched before the next is uploaded: the path the pipeline
+    replaced, as the yardstick of its bytes."""
+    from huffman_codec_tpu_torch.models.chunked import (
+        _chunk_bits, _strip_payload, _wire_payload)
+
+    cfg = codec.config
+    arr = np.frombuffer(data, np.uint8)
+    n_chunks = -(-len(arr) // cfg.chunk_size)
+    S = min(cfg.step_chunks or n_chunks, n_chunks)
+    pay, cols = [], []
+    for k in range(-(-n_chunks // S)):
+        a, meta, tab, rl, car = codec.encode_chunk_range(arr, k * S,
+                                                         (k + 1) * S)
+        pay.append(_wire_payload(_strip_payload(a, meta), meta, "canonical"))
+        cols.append([t.cpu().numpy() for t in (meta, tab, rl, car)])
+    meta, tab, rl, car = (np.concatenate([c[i] for c in cols])[:n_chunks]
+                          for i in range(4))
+    return codec._container(b"".join(pay), len(arr), int(rl.sum()),
+                            _chunk_bits(meta, "canonical"), tab, meta,
+                            (rl, car), zlib.crc32(data))
+
+
+def eager_round_trip_counts(K, codec, data: bytes, blob: bytes) -> dict:
+    """Launch counts of a step-by-step eager encode and decode of
+    ``data`` (no graphs), counted from zero."""
+    K.reset_launches()
+    if eager_encode(codec, data) != blob:
+        raise AssertionError("eager encode differs from the pipeline's")
+    hdr, staged = codec.stage_decode_steps(blob)
+    for st in staged:
+        codec._decode_step_eager(hdr, st)
+    torch.cuda.synchronize()
+    return K.launch_counts()
+
+
+def pipeline_split(codec, data: bytes, blob: bytes) -> dict:
+    """One end-to-end encode and decode with the codec's stage timer on:
+    host seconds (staging; the encode's payload bytes, crc32 and
+    container; the decode's parse, bytes and crc32), device seconds from
+    CUDA events (H2D, device, D2H: sums over the steps, which overlap),
+    and the wall of each."""
+    from huffman_codec_tpu_torch.utils.profiling import StageTimer
+
+    split = {}
+    for name, fn, want in (("encode", lambda: codec.encode(data), blob),
+                           ("decode", lambda: codec.decode(blob), data)):
+        torch.cuda.synchronize()
+        codec.timer = timer = StageTimer()
+        t = time.perf_counter()
+        got = fn()
+        wall = time.perf_counter() - t
+        codec.timer = None
+        if got != want:
+            raise AssertionError(f"stage-split {name} differs")
+        timer.resolve()
+        split[name] = {"wall_s": wall, **{k: v for k, v in
+                                          timer.stages.items()}}
+    return split
+
+
+def pipeline_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict):
+    """The step pipeline of the main path (64 MiB sharded, diff on and
+    off): containers against the eager single-step path and the CPU plain
+    path, replayed graph steps against eager steps for every output, the
+    dispatch halves under sync debug mode "error", launch counts with and
+    without graphs, the stage split of the end-to-end encode and decode,
+    the device encode and decode with graphs beside the eager figures, and
+    the traced idle share of a round trip. Returns the counted launches of
+    the pipelined round trips."""
+    from huffman_codec_tpu_torch.models.chunked import _encode_step
+
+    data = x.tobytes()
+    n = len(data)
+    arr = np.frombuffer(data, np.uint8)
+    cfgs = {d: CodecConfig(use_diff=d, chunk_size=CS, lane=LANE,
+                           layout="sharded", step_chunks=STEP)
+            for d in (False, True)}
+
+    # -- counted: fresh codecs, so the first step warms and the second
+    #    captures, as a first call does
+    K.reset_launches()
+    codecs, blobs = {}, {}
+    for d, cfg in cfgs.items():
+        codecs[d] = codec = TorchCodec(cfg)
+        blobs[d] = codec.encode(data)
+        if codec.decode(blobs[d]) != data:
+            raise AssertionError(f"pipeline round trip failed (diff={d})")
+    launches = K.launch_counts()
+    log("pipeline launches (two 64 MiB round trips, graphs):", launches)
+    if not all(launches[k] for k in MAIN_KERNELS):
+        raise AssertionError(f"a main-path kernel never ran: {launches}")
+    graphs = {d: {str(k): (g.graph is not None, g.launches)
+                  for k, g in c._graphs.items()} for d, c in codecs.items()}
+    if not all(cap for gs in graphs.values() for cap, _ in gs.values()):
+        raise AssertionError(f"a step graph was never captured: {graphs}")
+    log("step graphs (captured, launches a replay adds):", graphs)
+    eager = {}
+    for d in cfgs:
+        for k, v in eager_round_trip_counts(K, codecs[d], data,
+                                            blobs[d]).items():
+            eager[k] = eager.get(k, 0) + v
+    if eager != launches:
+        raise AssertionError(f"launch counts differ with graphs: {launches}"
+                             f" against eager {eager}")
+    log("launch counts equal with and without graphs; the eager "
+        "single-step encode's containers equal the pipeline's (64 MiB, "
+        "diff on and off)")
+
+    # -- the 16 MiB + 12,345 B prefix: pipeline == eager == CPU plain
+    tail = data[: (16 << 20) + 12345]
+    for d, cfg in cfgs.items():
+        g = codecs[d].encode(tail)
+        if g != eager_encode(codecs[d], tail):
+            raise AssertionError(f"prefix: pipeline != eager (diff={d})")
+        if g != TorchCodec(cfg, device="cpu").encode(tail):
+            raise AssertionError(f"prefix: pipeline != CPU plain (diff={d})")
+        if codecs[d].decode(g) != tail:
+            raise AssertionError(f"prefix round trip failed (diff={d})")
+    log(f"{len(tail)} B prefix, diff on and off: pipeline == eager single "
+        "step == CPU plain path; round trips exact")
+
+    # -- replayed steps against eager steps, every output
+    for d, codec in codecs.items():
+        for k in range(n // (STEP * CS)):
+            base = codec._upload_step(arr, k * STEP, (k + 1) * STEP)
+            got = codec._run_encode_step(base, STEP)
+            want = _encode_step(base, STEP, CS, LANE, d, "canonical")
+            for i, (g, w) in enumerate(zip(got, want)):
+                same(f"pipeline.encode_step.{i}", g, w, errs)
+        hdr, staged = codec.stage_decode_steps(blobs[d])
+        for st in staged:
+            same("pipeline.decode_step",
+                 codec._decode_step(hdr, st, STEP).clone(),
+                 codec._decode_step_eager(hdr, st), errs)
+    log("graph-replayed encode and decode steps == eager steps, every "
+        "output, every step, diff on and off")
+
+    # -- the dispatch halves under sync debug mode "error"
+    for d, codec in codecs.items():
+        hdr = codec._parse(blobs[d])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = codec.dispatch_sharded(data)
+            flat = codec._run_decode(hdr,
+                                     codec.stage_decode_steps(blobs[d],
+                                                              hdr)[1])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if codec.fetch_sharded(data, outs) != blobs[d]:
+            raise AssertionError("sync-debug encode differs")
+        if flat[:n].cpu().numpy().tobytes() != data:
+            raise AssertionError("sync-debug decode differs")
+    log('dispatch halves of encode and decode: no synchronisation under '
+        'torch.cuda.set_sync_debug_mode("error")')
+
+    # -- device encode and decode, inputs resident: graphs against eager
+    for d, codec in codecs.items():
+        bases = [codec._upload_step(arr, k * STEP, (k + 1) * STEP)
+                 for k in range(n // (STEP * CS))]
+        hdr, staged = codec.stage_decode_steps(blobs[d])
+        torch.cuda.synchronize()
+        fns = {
+            "encode_graph": lambda: [codec._run_encode_step(b, STEP)
+                                     for b in bases],
+            "encode_eager": lambda: [_encode_step(b, STEP, CS, LANE, d,
+                                                  "canonical")
+                                     for b in bases],
+            "decode_graph": lambda: codec.run_decode_steps(hdr, staged),
+            "decode_eager": lambda: [codec._decode_step_eager(hdr, st)
+                                     for st in staged],
+        }
+        times = {k: {"queued_ms": cuda_ms(f, reps=10, warm=2, queued=True),
+                     "host_paced_ms": cuda_ms(f, reps=10, warm=2)}
+                 for k, f in fns.items()}
+        log(f"pipeline device times, 64 MiB diff={d} (ms; graph = replays "
+            "+ the clones of their outputs):", json.dumps(times))
+        del bases, staged
+
+    # -- the stage split of the end-to-end encode and decode
+    for d, codec in codecs.items():
+        for r in range(SPLIT_RUNS):
+            log(f"stage split 64 MiB diff={d} run {r} (s):",
+                json.dumps(pipeline_split(codec, data, blobs[d])))
+
+    # -- the traced idle share of a 64 MiB round trip (warm codec)
+    tmp = Path(tempfile.mkdtemp(prefix="pipe_trace_"))
+    try:
+        codec = codecs[True]
+        t = time.perf_counter()
+        with device_trace(str(tmp / "trace")) as path:
+            rt = codec.decode(codec.encode(data))
+            torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t
+        if rt != data:
+            raise AssertionError("traced pipeline round trip failed")
+        share = busy_share(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"profiler, pipeline: 64 MiB sharded diff encode + decode traced in "
+        f"{traced_s:.3f} s; window {share['window_ms']:.3f} ms, kernels "
+        f"busy {share['kernel_busy_ms']:.3f} ms = "
+        f"{100 * share['busy_share']:.2f}%, {share['kernel_events']} kernel "
+        f"events; copies and sets {share['copy_and_set_ms']:.3f} ms; "
+        f"kernels or copies {100 * share['with_copies_share']:.2f}%, idle "
+        f"{100 * share['idle_share']:.2f}%")
+    log("profiler top 5 kernels (pipeline): " + json.dumps(share["top5"]))
+    del codecs
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2637,7 +2879,9 @@ def main() -> int:
         hdr, staged = codec.stage_decode_steps(blobs[d])
         torch.cuda.synchronize()
         dec_ms = median_ms(lambda: codec.run_decode_steps(hdr, staged))
-        # end to end on the host clock (upload, fetch, crc, container)
+        # end to end on the host clock (upload, fetch, crc, container),
+        # after one encode that captures the step graph
+        codec.encode(data)
         t = time.perf_counter()
         blob = codec.encode(data)
         e2e_enc = time.perf_counter() - t
@@ -2775,6 +3019,11 @@ def main() -> int:
     del specs, ops, buf_s, repad_lib, mk, xd
     main_shapes.clear()
     torch.cuda.empty_cache()
+
+    # -- the step pipeline: graphs, two fetch waves, the stage split -------
+    plaunches = pipeline_path(K, TorchCodec, CodecConfig, x, errs)
+    for row in rows:
+        row["launches_pipeline"] = plaunches[row["name"]]
 
     # -- shapes that do not divide by 16 -------------------------------------
     slaunches = shapes_path(K, TorchCodec, CodecConfig, errs)

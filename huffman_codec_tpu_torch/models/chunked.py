@@ -22,10 +22,13 @@ Sharded encode, one step of ``step_chunks`` input chunks at a time:
 per-chunk diff seeded by the carry byte and MNP-5 RLE (kernel), byte
 histogram (kernel), package-merge code lengths and canonical codes (torch
 ops), lane pack (kernel), then the padding between lanes is stripped on
-the device. Sharded decode, per step: re-pad the wire words to a fixed
-lane stride (kernel), canonical lane decode (kernel), MNP-5 decode with
-the diff revert (kernel: it finds the count bytes itself), then the crc32
-check.
+the device at a fixed shape. Sharded decode, per step: re-pad the wire
+words to a fixed lane stride (kernel), canonical lane decode (kernel),
+MNP-5 decode with the diff revert (kernel: it finds the count bytes
+itself), then the crc32 check. Both run as the JAX package's step
+pipeline (``models/pipeline.py``): every step uploaded and dispatched
+before any is fetched, fetches in waves, on the card each canonical step
+one CUDA graph replay.
 
 Global encode: diff and MNP-5 RLE over the whole input as one stream
 (torch ops; runs cross chunk borders), the stream cut into chunks, the
@@ -67,6 +70,7 @@ chunks at the configured lane, still raced against v1.
 
 from __future__ import annotations
 
+import functools
 import struct
 import zlib
 from dataclasses import dataclass, fields
@@ -87,6 +91,12 @@ from huffman_codec_tpu_torch.formats import (
     V3_MAGIC,
     is_v2,
     parse_huff_header,
+)
+from huffman_codec_tpu_torch.models.pipeline import (
+    ALIGN,
+    StepGraph,
+    Transfers,
+    aligned,
 )
 from huffman_codec_tpu_torch.native import runtime
 from huffman_codec_tpu_torch.ops import kernels
@@ -185,10 +195,24 @@ def _sharded_cap(chunk_size: int, entropy: str, lane: int) -> int:
 
 
 def _strip_payload(buf: torch.Tensor, lw: torch.Tensor) -> torch.Tensor:
-    """(C, n_lanes, W) padded lane buffers -> the dense payload words, by
-    one boolean-mask compaction on the buffers' device."""
-    col = torch.arange(buf.shape[2], device=buf.device)
-    return buf[col[None, None, :] < lw[:, :, None]]
+    """(C, n_lanes, W) padded lane buffers -> a (C * n_lanes * W,) buffer
+    whose prefix is the dense payload words, zeros past it, at a fixed
+    shape and without synchronising (the JAX package's compaction): each
+    lane's first ``lw`` words are scattered to its offset, an exclusive
+    cumsum of ``lw``, its other words to a spill slot of its own past the
+    end, which is cut off. The used length is ``lw.sum()``, which a caller
+    reads from the manifest."""
+    C, nl, W = buf.shape
+    n = C * nl * W
+    dev = buf.device
+    lw64 = lw.reshape(-1).to(torch.int64)
+    off = torch.cumsum(lw64, 0) - lw64
+    col = torch.arange(W, device=dev)[None, :]
+    spill = n + torch.arange(C * nl, device=dev)[:, None]
+    dst = torch.where(col < lw64[:, None], off[:, None] + col, spill)
+    out = torch.zeros(n + C * nl, dtype=buf.dtype, device=dev)
+    out.scatter_(0, dst.reshape(-1), buf.reshape(-1))
+    return out[:n]
 
 
 def _words_to_wire(words: torch.Tensor) -> bytes:
@@ -197,6 +221,26 @@ def _words_to_wire(words: torch.Tensor) -> bytes:
     if words.dtype == torch.uint8:
         return words.cpu().numpy().tobytes()
     return words.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+
+
+def _wire_payload(payload: torch.Tensor, meta: torch.Tensor,
+                  entropy: str) -> bytes:
+    """The wire bytes of ``_dense_payload``'s output: the used prefix of a
+    canonical strip (``meta.sum()`` words; reading it synchronises), or
+    the FGK bytes as they are."""
+    if entropy == "canonical":
+        payload = payload[: int(meta.sum())]
+    return _words_to_wire(payload)
+
+
+def _bucket(used: int, size: int) -> int:
+    """The words a payload fetch takes: ``used`` rounded up to a power of
+    two (at least 1024), as the JAX package's second fetch wave does, at
+    most the payload's ``size``."""
+    b = 1024
+    while b < used:
+        b <<= 1
+    return min(b, size)
 
 
 def _entropy_encode(chunks: torch.Tensor, lens: torch.Tensor, entropy: str,
@@ -258,6 +302,44 @@ def _encode_sharded_stage(data: torch.Tensor, length,
                                                 use_diff, cap)
     return (*_entropy_encode(streams, rle_lens, entropy, lane, n_words),
             rle_lens, carries)
+
+
+def _step_views(base: torch.Tensor, S: int, chunk_size: int):
+    """(data (S * chunk_size,) uint8, length (1,) int32, carry (1,) uint8)
+    of an encode step's uploaded buffer (``TorchCodec._upload_step``)."""
+    off = aligned(S * chunk_size)
+    return (base[: S * chunk_size], base[off: off + 4].view(torch.int32),
+            base[off + ALIGN: off + ALIGN + 1])
+
+
+def _encode_step(base: torch.Tensor, S: int, chunk_size: int, lane: int,
+                 use_diff: bool, entropy: str):
+    """One sharded encode step from its uploaded buffer: the stage, and for
+    canonical entropy the payload stripped on the device at a fixed shape
+    (what a CUDA graph captures). Returns (payload, meta, tables,
+    rle_lens, carries) on the device: the stripped words, or FGK's word
+    rows as they are (``chunk_bytes`` strips them, with a synchronisation,
+    once every step is dispatched)."""
+    data, length, carry = _step_views(base, S, chunk_size)
+    a, meta, tables, rl, car = _encode_sharded_stage(
+        data, length, carry, use_diff, chunk_size, S, lane, entropy)
+    if entropy == "canonical":
+        a = _strip_payload(a, meta)
+    return a, meta, tables, rl, car
+
+
+def _decode_canonical_step(flat, lw, tables, rl, car, *, wb: int, lane: int,
+                           cap: int, max_len: int, chunk_size: int,
+                           use_diff: bool):
+    """One canonical sharded decode step: re-pad the dense words to the
+    lane stride ``wb`` (kernel), decode the lanes (kernel), expand the RLE
+    with the diff revert (kernel); the JAX package's
+    ``_decode_step_fused``. Returns ((S * chunk_size,) uint8,)."""
+    words = kernels.repad_words(flat, lw, wb)
+    chunks_rle = canonical_decode_batch(words, tables, lw, rl, lane=lane,
+                                        out_len=cap, max_len=max_len)
+    return (kernels.rle_expand(chunks_rle, rl, car, chunk_size,
+                               use_diff).view(-1),)
 
 
 def _chunkify(stream: torch.Tensor, total: torch.Tensor, chunk_size: int,
@@ -432,6 +514,23 @@ class TorchCodec:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device; pass device='cpu' to run "
                                "the plain PyTorch versions")
+        self._xfer = Transfers(self.device)
+        # one CUDA graph per step geometry, as jax.jit keeps one program
+        self._graphs: dict = {}
+
+    @property
+    def timer(self):
+        """A ``utils.profiling.StageTimer`` that receives the sharded
+        stream path's stage split (host staging, H2D, device, D2H; the
+        encode's payload bytes, crc32 and container; the decode's parse,
+        bytes and crc32), or None (the default: nothing is timed). Its
+        device stages come from CUDA events: call its ``resolve`` after
+        the encode or decode."""
+        return self._xfer.timer
+
+    @timer.setter
+    def timer(self, timer) -> None:
+        self._xfer.timer = timer
 
     # -- encode -------------------------------------------------------------
 
@@ -445,18 +544,101 @@ class TorchCodec:
         cfg = self.config
         if cfg.layout != "sharded":
             raise ValueError("encode_chunk_range requires the sharded layout")
-        cs = cfg.chunk_size
         arr = (np.frombuffer(data, np.uint8)
                if isinstance(data, (bytes, bytearray)) else data)
+        base = self._upload_step(arr, c0, c1)
+        x, length, carry = _step_views(base, c1 - c0, cfg.chunk_size)
+        return _encode_sharded_stage(x, length, carry, cfg.use_diff,
+                                     cfg.chunk_size, c1 - c0, cfg.lane,
+                                     cfg.entropy)
+
+    def _upload_step(self, arr: np.ndarray, c0: int, c1: int) -> torch.Tensor:
+        """Chunks [c0, c1) of the input as one fixed step, in one buffer on
+        the device (``_step_views``): the bytes, zero past the input, the
+        valid length and the carry byte (the input byte before the step,
+        0 at the start). Staged in pinned memory and copied on the copy
+        stream; the current stream waits for the copy, the host does
+        not."""
+        cs = self.config.chunk_size
         n = len(arr)
         lo, hi = c0 * cs, min(n, c1 * cs)
-        step_np = np.zeros((c1 - c0) * cs, np.uint8)
-        step_np[: max(0, hi - lo)] = arr[lo:hi]
-        carry0 = int(arr[lo - 1]) if 0 < lo <= n else 0
-        x = torch.from_numpy(step_np).to(self.device)
-        return _encode_sharded_stage(x, max(0, hi - lo), carry0,
-                                     cfg.use_diff, cs, c1 - c0, cfg.lane,
-                                     cfg.entropy)
+        carry0 = arr[lo - 1] if 0 < lo <= n else 0
+        base, _, ready = self._xfer.upload([
+            (arr[lo:hi], (c1 - c0) * cs, torch.uint8),
+            (np.array([max(0, hi - lo)], np.int32), 1, torch.int32),
+            (np.array([carry0], np.uint8), 1, torch.uint8)])
+        self._xfer.wait(ready)
+        return base
+
+    def _run_encode_step(self, base: torch.Tensor, S: int):
+        """``_encode_step`` of an uploaded step of S chunks, without
+        synchronising. Canonical entropy on CUDA replays the step's CUDA
+        graph (one per (S, chunk_size, lane, use_diff)) and clones its
+        outputs, since every step is dispatched before any is fetched;
+        FGK (kernel-bound, one launch) and the CPU run eagerly."""
+        cfg = self.config
+        step = functools.partial(
+            _encode_step, S=S, chunk_size=cfg.chunk_size, lane=cfg.lane,
+            use_diff=cfg.use_diff, entropy=cfg.entropy)
+        if cfg.entropy != "canonical" or not self._xfer.cuda:
+            return step(base)
+        key = ("encode", S, cfg.chunk_size, cfg.lane, cfg.use_diff)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = StepGraph(step,
+                                                  [torch.empty_like(base)])
+        return tuple(o.clone() for o in graph(base))
+
+    def dispatch_sharded(self, data: bytes) -> list:
+        """The dispatch half of the sharded stream encode: every step
+        staged, uploaded and run (``_run_encode_step``) before any is
+        fetched; nothing here waits for the device. Returns each step's
+        outputs on the device, for ``fetch_sharded``."""
+        cfg = self.config
+        arr = np.frombuffer(data, np.uint8)
+        n_chunks = _cdiv(len(arr), cfg.chunk_size)
+        S = min(cfg.step_chunks or n_chunks, n_chunks)
+        outs = []
+        for k in range(_cdiv(n_chunks, S)):
+            base = self._upload_step(arr, k * S, (k + 1) * S)
+            with self._xfer.device_stage("device"):
+                outs.append(self._run_encode_step(base, S))
+        return outs
+
+    def fetch_sharded(self, data: bytes, outs: list) -> bytes:
+        """The fetch half: wave 1 copies every step's manifests (lane words
+        or FGK bits, tables, rle_lens, carries) to pinned memory and waits
+        once; wave 2 copies each canonical step's used payload prefix
+        (rounded up by ``_bucket``) and waits once; then the container.
+        FGK strips its word rows here (``chunk_bytes``, which
+        synchronises)."""
+        cfg = self.config
+        n = len(data)
+        n_chunks = _cdiv(n, cfg.chunk_size)
+        canonical = cfg.entropy == "canonical"
+        xf = self._xfer
+        man = [xf.fetch([t for t in o[1:] if t is not None]) for o in outs]
+        xf.fence()
+        if canonical:
+            used = [int(m[0].numpy().sum(dtype=np.int64)) for m in man]
+            pays = [xf.fetch([o[0][: _bucket(u, o[0].shape[0])]])[0]
+                    for o, u in zip(outs, used)]
+            xf.fence()
+            pays = [p[:u] for p, u in zip(pays, used)]
+        else:
+            pays = [chunk_bytes(o[0], o[1]) for o in outs]
+        cols = [np.concatenate([m[i].numpy() for m in man])[:n_chunks]
+                for i in range(len(man[0]))]
+        meta, rl, car = cols[0], cols[-2], cols[-1]
+        with xf.host_stage("payload"):
+            payload = b"".join(_words_to_wire(p) for p in pays)
+        with xf.host_stage("crc32"):
+            crc = zlib.crc32(data)
+        with xf.host_stage("container"):
+            return self._container(
+                payload, n, int(rl.sum()), _chunk_bits(meta, cfg.entropy),
+                cols[1] if canonical else None,
+                meta if canonical else None, (rl, car), crc)
 
     def encode(self, data: bytes) -> bytes:
         cfg = self.config
@@ -487,31 +669,15 @@ class TorchCodec:
             # first, so it also wins a tie
             sts = [self._dispatch_global(data, bs, w)
                    for w in self.global_candidates(n)]
+            # both candidates' manifests are fetched before either is
+            # read, then both payload prefixes (the JAX package's waves)
+            for st in sts:
+                self._start_fetch(st)
+            for st in sts:
+                self._presplice_payload(st)
             return self._race_v1(data, min(
                 (self._assemble_global(data, st) for st in sts), key=len))
-        n_chunks = _cdiv(n, cfg.chunk_size)
-        arr = np.frombuffer(data, np.uint8)
-        S = min(cfg.step_chunks or n_chunks, n_chunks)
-        payload, metas, tables, rle_lens, carries = [], [], [], [], []
-        for k in range(_cdiv(n_chunks, S)):
-            a, meta, tab, rl, car = self.encode_chunk_range(arr, k * S,
-                                                            (k + 1) * S)
-            payload.append(_words_to_wire(_dense_payload(a, meta,
-                                                         cfg.entropy)))
-            metas.append(meta.cpu().numpy())
-            if tab is not None:
-                tables.append(tab.cpu().numpy())
-            rle_lens.append(rl.cpu().numpy())
-            carries.append(car.cpu().numpy())
-        rl = np.concatenate(rle_lens)[:n_chunks]
-        car = np.concatenate(carries)[:n_chunks]
-        meta = np.concatenate(metas)[:n_chunks]
-        canonical = cfg.entropy == "canonical"
-        return self._container(
-            b"".join(payload), n, int(rl.sum()),
-            _chunk_bits(meta, cfg.entropy),
-            np.concatenate(tables)[:n_chunks] if canonical else None,
-            meta if canonical else None, (rl, car), zlib.crc32(data))
+        return self.fetch_sharded(data, self.dispatch_sharded(data))
 
     def run_sharded_adapt_stage(self, x: torch.Tensor, bs: int) -> list:
         """The sharded-adaptive device stage on resident input ((n,) uint8
@@ -558,7 +724,8 @@ class TorchCodec:
         bs = adapt_search_best_v3(diff_apply(x) if cfg.use_diff else x, w,
                                   n_rows, max_height=band_h)
         outs = self.run_sharded_adapt_stage(x, bs)
-        payload = b"".join(_words_to_wire(o[0]) for o in outs)
+        payload = b"".join(_wire_payload(o[0], o[1], cfg.entropy)
+                           for o in outs)
         meta, rl = (np.concatenate([o[i].cpu().numpy() for o in outs])
                     for i in (1, 3))
         canonical = cfg.entropy == "canonical"
@@ -616,35 +783,63 @@ class TorchCodec:
         x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
         return self.run_global_stage(x.to(self.device), whole, bs)
 
+    def _start_fetch(self, st: dict) -> None:
+        """Start the device -> host copies of a dispatched candidate's
+        arrays into pinned memory (``st["host"]``), all but a canonical
+        payload, whose used length the manifest gives
+        (``_presplice_payload``)."""
+        dense = self.config.entropy == "canonical"
+        keys = [k for k, v in st.items() if isinstance(v, torch.Tensor)
+                and not (k == "payload" and dense)]
+        st["host"] = dict(zip(keys, self._xfer.fetch([st[k] for k in keys])))
+        st["fetched"] = self._xfer.record()
+
+    def _presplice_payload(self, st: dict) -> None:
+        """Second wave: once the candidate's manifest has landed, start the
+        copy of its canonical payload's used prefix (``_bucket``)."""
+        if self.config.entropy != "canonical":
+            return
+        self._xfer.wait_host(st["fetched"])
+        st["used"] = int(st["host"]["meta"].numpy().sum(dtype=np.int64))
+        pay = st["payload"]
+        st["host"]["payload"] = self._xfer.fetch(
+            [pay[: _bucket(st["used"], pay.shape[0])]])[0]
+        st["fetched"] = self._xfer.record()
+
     def _assemble_global(self, data: bytes, st: dict) -> bytes:
-        """Fetch one dispatched candidate and assemble its container; the
+        """The container of a candidate whose fetches were started; the
         chunks past the stream's end hold no lane words and drop out."""
+        self._xfer.wait_host(st["fetched"])
+        h = st["host"]
         cs = st["cs"]
-        total = int(st["total"])
+        total = int(h["total"])
         n_chunks = _cdiv(total, cs)
-        meta = st["meta"].cpu().numpy()[:n_chunks]
+        meta = h["meta"].numpy()[:n_chunks]
         entropy = self.config.entropy
         canonical = entropy == "canonical"
         adapt_meta = None
         if st["bs"] is not None:
-            tile_lens = st["tile_lens"].cpu().numpy()
+            tile_lens = h["tile_lens"].numpy()
             # the payload estimate: the lanes' words, or the FGK bits
             est = (4 * int(meta.sum()) if canonical
                    else int(meta.sum()) // 8)
             grouped = grouped_manifest(len(tile_lens), st["bs"], est)
-            adapt_meta = (*st["wh"], st["bs"], st["dirs"].cpu().numpy(),
+            adapt_meta = (*st["wh"], st["bs"], h["dirs"].numpy(),
                           tile_lens, grouped)
+        payload = h["payload"][: st["used"]] if canonical else h["payload"]
         return self._container(
-            _words_to_wire(st["payload"]), st["n"], total,
+            _words_to_wire(payload), st["n"], total,
             _chunk_bits(meta, entropy),
-            st["tables"].cpu().numpy()[:n_chunks] if canonical else None,
+            h["tables"].numpy()[:n_chunks] if canonical else None,
             meta if canonical else None, None,
             zlib.crc32(data), chunk_size=cs, lane=st["lane"],
             adapt_meta=adapt_meta)
 
     def _encode_global(self, data: bytes, bs, whole: bool) -> bytes:
-        return self._assemble_global(data,
-                                     self._dispatch_global(data, bs, whole))
+        st = self._dispatch_global(data, bs, whole)
+        self._start_fetch(st)
+        self._presplice_payload(st)
+        return self._assemble_global(data, st)
 
     def _race_v1(self, data: bytes, blob: bytes) -> bytes:
         """Keep the reference's v1 format when it is strictly smaller:
@@ -749,42 +944,43 @@ class TorchCodec:
         offs = hdr["chunk_offs"]
         base = hdr["payload_off"] + int(offs[c0])
         nbytes = int(offs[c1] - offs[c0])
-        nb = np.zeros(rows, np.int64)
-        nb[: c1 - c0] = np.diff(offs[c0:c1 + 1])
-        off = np.zeros(rows, np.int64)
-        off[: c1 - c0] = offs[c0:c1] - offs[c0]
-        dev = self.device
-        payload = torch.from_numpy(
-            np.frombuffer(blob, np.uint8, nbytes, base).copy()).to(dev)
-        return chunk_words(payload, torch.from_numpy(off).to(dev),
-                           torch.from_numpy(nb).to(dev),
+        nb = np.diff(offs[c0:c1 + 1])
+        _, (payload, off, nbt), ready = self._xfer.upload([
+            (np.frombuffer(blob, np.uint8, nbytes, base), nbytes,
+             torch.uint8),
+            (offs[c0:c1] - offs[c0], rows, torch.int64),
+            (nb, rows, torch.int64)])
+        self._xfer.wait(ready)
+        return chunk_words(payload, off, nbt,
                            _cdiv(int(nb.max(initial=0)), 4) + 1)
 
     def _stage_step(self, blob: bytes, hdr: dict, c0: int, c1: int, S: int):
-        """Host -> device transfer of one decode step: the step's dense
-        payload plus its manifest rows, zero-padded to S chunks."""
-        rl = np.zeros(S, np.int32)
-        rl[: c1 - c0] = hdr["rle_lens"][c0:c1]
-        car = np.zeros(S, np.uint8)
-        car[: c1 - c0] = hdr["carries"][c0:c1]
-        dev = self.device
-        st = {"c0": c0, "c1": c1, "rl": torch.from_numpy(rl).to(dev),
-              "car": torch.from_numpy(car).to(dev)}
-        if hdr["entropy"] == ENTROPY_FGK:
+        """Host -> device transfer of one decode step, without any compute:
+        the manifest rows zero-padded to S chunks and the step's dense
+        payload words (canonical), staged in one pinned buffer and copied
+        on the copy stream; ``ready`` is the event that marks the copy
+        (the compute waits on it, the host does not). FGK word rows are
+        cut on the device as they are staged."""
+        parts = [(hdr["rle_lens"][c0:c1], S, torch.int32),
+                 (hdr["carries"][c0:c1], S, torch.uint8)]
+        canonical = hdr["entropy"] != ENTROPY_FGK
+        if canonical:
+            nl = hdr["lane_words"].shape[1]
+            offs = hdr["chunk_offs"]
+            nw = int(offs[c1] - offs[c0]) // 4
+            parts += [(hdr["lane_words"][c0:c1], S * nl, torch.int32),
+                      (hdr["tables"][c0:c1], S * 256, torch.uint8),
+                      (np.frombuffer(blob, ">u4", nw,
+                                     hdr["payload_off"] + int(offs[c0])),
+                       nw, torch.int32)]
+        _, views, ready = self._xfer.upload(parts)
+        st = {"c0": c0, "c1": c1, "rl": views[0], "car": views[1],
+              "ready": ready}
+        if canonical:
+            st.update(lw=views[2].view(S, nl), tables=views[3].view(S, 256),
+                      flat=views[4])
+        else:
             st["words"] = self._stage_fgk_words(blob, hdr, c0, c1, S)
-            return st
-        nl = hdr["lane_words"].shape[1]
-        offs = hdr["chunk_offs"]
-        base = hdr["payload_off"] + int(offs[c0])
-        nw = int(offs[c1] - offs[c0]) // 4
-        flat = np.frombuffer(blob, ">u4", nw, base).astype(np.uint32)
-        lw = np.zeros((S, nl), np.int32)
-        lw[: c1 - c0] = hdr["lane_words"][c0:c1]
-        tab = np.zeros((S, 256), np.uint8)
-        tab[: c1 - c0] = hdr["tables"][c0:c1]
-        st.update(flat=torch.from_numpy(flat.view(np.int32)).to(dev),
-                  lw=torch.from_numpy(lw).to(dev),
-                  tables=torch.from_numpy(tab).to(dev))
         return st
 
     @staticmethod
@@ -816,23 +1012,72 @@ class TorchCodec:
                   for k in range(_cdiv(n_chunks, S))] if n_chunks else []
         return hdr, staged
 
+    def _decode_step_eager(self, hdr: dict, st: dict) -> torch.Tensor:
+        """A staged step's decode, launch by launch: (S * chunk_size,)
+        uint8 on the device."""
+        self._xfer.wait(st["ready"])
+        cs = hdr["chunk_size"]
+        cap = _sharded_cap(cs, _entropy_name(hdr), hdr["lane"])
+        chunks_rle = self._entropy_decode(hdr, st, st["rl"], cap)
+        return kernels.rle_expand(chunks_rle, st["rl"], st["car"], cs,
+                                  bool(hdr["flags"] & FLAG_DIFF)).view(-1)
+
+    def _decode_step(self, hdr: dict, st: dict, S: int) -> torch.Tensor:
+        """A staged step of S chunks -> (S * chunk_size,) uint8 on the
+        device, without synchronising. A canonical step on CUDA replays
+        the decode graph of its geometry, keyed by (S, chunk_size, lane,
+        wl_bucket, max_len_bucket, use_diff), whose dense-word input is a
+        static buffer at the step's capacity (S * lanes * wl_bucket
+        words); the result is the graph's output, overwritten by the next
+        replay. FGK (kernel-bound) and the CPU run eagerly."""
+        if hdr["entropy"] == ENTROPY_FGK or not self._xfer.cuda:
+            return self._decode_step_eager(hdr, st)
+        self._xfer.wait(st["ready"])
+        cs, lane = hdr["chunk_size"], hdr["lane"]
+        wb, ml = hdr["wl_bucket"], hdr["max_len_bucket"]
+        use_diff = bool(hdr["flags"] & FLAG_DIFF)
+        key = ("decode", S, cs, lane, wb, ml, use_diff)
+        graph = self._graphs.get(key)
+        if graph is None:
+            cap = _sharded_cap(cs, "canonical", lane)
+            nl, dev = cap // lane, self.device
+            statics = [
+                torch.empty(S * nl * wb, dtype=torch.int32, device=dev),
+                torch.empty((S, nl), dtype=torch.int32, device=dev),
+                torch.empty((S, 256), dtype=torch.uint8, device=dev),
+                torch.empty(S, dtype=torch.int32, device=dev),
+                torch.empty(S, dtype=torch.uint8, device=dev)]
+            graph = self._graphs[key] = StepGraph(functools.partial(
+                _decode_canonical_step, wb=wb, lane=lane, cap=cap,
+                max_len=ml, chunk_size=cs, use_diff=use_diff), statics)
+        return graph(st["flat"], st["lw"], st["tables"], st["rl"],
+                     st["car"])[0]
+
+    def _run_decode(self, hdr: dict, staged: list) -> torch.Tensor:
+        """Every staged step decoded into one (steps * S * chunk_size,)
+        uint8 device tensor, without synchronising."""
+        S = staged[0]["rl"].shape[0] if staged else 0
+        step = S * hdr["chunk_size"]
+        out = torch.empty(len(staged) * step, dtype=torch.uint8,
+                          device=self.device)
+        for k, st in enumerate(staged):
+            with self._xfer.device_stage("device"):
+                out[k * step:(k + 1) * step].copy_(
+                    self._decode_step(hdr, st, S))
+        return out
+
     def run_decode_steps(self, hdr: dict, staged: list):
         """Run the decode compute of staged steps; returns each step's
         (S * chunk_size,) uint8 device tensor without synchronising."""
-        cs = hdr["chunk_size"]
-        use_diff = bool(hdr["flags"] & FLAG_DIFF)
-        cap = _sharded_cap(cs, _entropy_name(hdr), hdr["lane"])
-        parts = []
-        for st in staged:
-            chunks_rle = self._entropy_decode(hdr, st, st["rl"], cap)
-            out = kernels.rle_expand(chunks_rle, st["rl"], st["car"], cs,
-                                     use_diff)
-            parts.append(out.view(-1))
-        return parts
+        if not staged:
+            return []
+        out = self._run_decode(hdr, staged)
+        return list(out.split(out.shape[0] // len(staged)))
 
     def decode_steps(self, blob: bytes, hdr: dict | None = None):
         """The sharded-layout decode as per-step device tensors, not yet
-        copied back to the host."""
+        copied back to the host: every step staged before any runs, and
+        no step waits for the device."""
         hdr, staged = self.stage_decode_steps(blob, hdr)
         return self.run_decode_steps(hdr, staged)
 
@@ -868,6 +1113,7 @@ class TorchCodec:
         cap = _sharded_cap(hdr["chunk_size"], _entropy_name(hdr), hdr["lane"])
         parts = []
         for st in staged:
+            self._xfer.wait(st["ready"])
             streams = self._entropy_decode(hdr, st, st["rl"], cap)
             parts.append(_decode_sharded_adapt_tail(
                 streams, st["tile_lens"], st["dirs"], st["car"], hdr["w"],
@@ -909,9 +1155,9 @@ class TorchCodec:
         c0, c1 = start // cs, (start + length - 1) // cs + 1
         if hdr["flags"] & FLAG_ADAPT:
             flat = self._decode_adapt_bands(blob, hdr, c0, c1).cpu().numpy()
-        else:
+        else:  # one-off shape: no graph
             step = self._stage_step(blob, hdr, c0, c1, c1 - c0)
-            flat = self.run_decode_steps(hdr, [step])[0].cpu().numpy()
+            flat = self._decode_step_eager(hdr, step).cpu().numpy()
         lo = start - c0 * cs
         return flat[lo: lo + length].tobytes()
 
@@ -1001,19 +1247,28 @@ class TorchCodec:
             if count > 8 * (len(blob) - HUFF_HEADER_BYTES):
                 raise ValueError("invalid Huffman coding file contents")
             return runtime.v1_decompress(blob)
-        hdr = self._parse(blob)
+        xf = self._xfer
+        with xf.host_stage("parse"):
+            hdr = self._parse(blob)
         if hdr["orig"] == 0:
             return b""
         self._check_supported(hdr)
         if hdr["flags"] & FLAG_SHARDED and hdr["flags"] & FLAG_ADAPT:
             flat = self._decode_adapt_bands(blob, hdr, 0, hdr["n_chunks"])
         elif hdr["flags"] & FLAG_SHARDED:
-            flat = torch.cat(self.decode_steps(blob, hdr))
+            flat = self._run_decode(hdr, self.stage_decode_steps(blob,
+                                                                 hdr)[1])
         else:
             flat = self._decode_global(blob, hdr)
-        result = flat.cpu().numpy()[: hdr["orig"]].tobytes()
-        if zlib.crc32(result) != hdr["crc"]:
-            raise ValueError("v3 container integrity check failed (crc32)")
+        # the decoded bytes, fetched once into pinned memory
+        host = xf.fetch([flat[: hdr["orig"]]])[0]
+        xf.fence()
+        with xf.host_stage("bytes"):
+            result = host.numpy().tobytes()
+        with xf.host_stage("crc32"):
+            if zlib.crc32(result) != hdr["crc"]:
+                raise ValueError("v3 container integrity check failed "
+                                 "(crc32)")
         return result
 
     @staticmethod

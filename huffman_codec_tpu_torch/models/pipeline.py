@@ -1,0 +1,193 @@
+"""The host side of the sharded stream path: the counterpart of the JAX
+package's step pipeline (``huffman_codec_tpu/models/chunked.py``:
+``encode`` dispatching every step before it fetches any, the two-wave
+``_fetch_dense_payloads``, ``_start_fetch``, ``stage_decode_steps`` and
+the one-program decode step ``_decode_step_fused``).
+
+``Transfers`` moves the bytes. An upload is packed into one pinned host
+buffer and copied with ``non_blocking=True`` on a copy stream of its own;
+an event marks the copy, and the compute stream waits on that event, so
+the upload of step k + 1 runs while step k computes and the host never
+waits. A fetch copies into pinned host buffers with ``non_blocking=True``
+on the compute stream, and a wave of fetches ends in one event wait. On
+the CPU the same calls hand the arrays over as tensors: no pinned memory,
+no streams, no events.
+
+``StepGraph`` runs one device step as one CUDA graph replay, where JAX
+runs a jitted program. Its first call runs the step eagerly (the warm-up:
+the kernels are built with nvcc there, and its launches are real); the
+second captures it, so a one-step input never pays for a capture; from
+then on a call refills the static inputs and replays. A replay
+does not pass through the kernel wrappers, so the graph adds the launches
+its capture recorded to the wrappers' counts each time, and the capture,
+which launches nothing, takes them back. A capture that fails raises:
+nothing falls back to eager launches.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from huffman_codec_tpu_torch.ops import kernels
+
+# bytes every part of an upload is aligned to (the kernels' 16-byte loads)
+ALIGN = 16
+
+
+def aligned(nbytes: int) -> int:
+    return -(-nbytes // ALIGN) * ALIGN
+
+
+class Transfers:
+    """Host <-> device copies of one codec. ``timer`` (a
+    ``utils.profiling.StageTimer``, None by default) receives the host
+    staging time on the host clock and the copies' device times
+    (``H2D``, ``D2H``) from CUDA events."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._copy_stream = None  # made at the first upload
+        self.timer = None
+
+    @property
+    def copy_stream(self) -> torch.cuda.Stream:
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        return self._copy_stream
+
+    def host_stage(self, name: str):
+        return (self.timer.stage(name) if self.timer is not None
+                else contextlib.nullcontext())
+
+    def device_stage(self, name: str):
+        return (self.timer.device_stage(name)
+                if self.timer is not None and self.cuda
+                else contextlib.nullcontext())
+
+    def upload(self, parts):
+        """One host -> device copy of several arrays. ``parts`` holds
+        (array, count, dtype): the array's values fill the first elements
+        of a 1-d tensor of ``count`` elements of ``dtype`` (whose item
+        size is the array's), zeros the rest. Returns (the device buffer,
+        the tensors, the event that marks the copy, None on the CPU),
+        without synchronising; ``wait`` orders the current stream after
+        the copy. Parts start at multiples of ALIGN bytes of the buffer."""
+        offs, total = [], 0
+        for _, count, dtype in parts:
+            offs.append(total)
+            total += aligned(count * dtype.itemsize)
+        with self.host_stage("host staging"):
+            host = torch.empty(max(total, ALIGN), dtype=torch.uint8,
+                               pin_memory=self.cuda)
+            hn = host.numpy()
+            for (a, count, dtype), off in zip(parts, offs):
+                a = np.asarray(a).reshape(-1)
+                if a.dtype.itemsize != dtype.itemsize:
+                    raise ValueError(f"upload: {a.dtype} into {dtype}")
+                dst = hn[off: off + count * dtype.itemsize].view(
+                    a.dtype.newbyteorder("="))
+                dst[: a.size] = a
+                dst[a.size:] = 0
+        event = None
+        if self.cuda:
+            compute = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self.copy_stream):
+                with self.device_stage("H2D"):
+                    base = torch.empty_like(host, device=self.device)
+                    base.copy_(host, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self.copy_stream)
+            # freed only once the compute stream is past its last use
+            base.record_stream(compute)
+        else:
+            base = host
+        views = [base[off: off + count * dtype.itemsize].view(dtype)
+                 for (_, count, dtype), off in zip(parts, offs)]
+        return base, views, event
+
+    def wait(self, event) -> None:
+        """Order the current stream after ``event`` (no host wait)."""
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
+
+    def fetch(self, tensors) -> list[torch.Tensor]:
+        """Start the device -> host copies of ``tensors`` into pinned
+        buffers on the current stream; the host tensors hold the values
+        once ``fence`` (or ``wait_host`` on a later ``record``) returns.
+        On the CPU: the tensors themselves."""
+        if not self.cuda:
+            return list(tensors)
+        out = []
+        with self.device_stage("D2H"):
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                out.append(h)
+        return out
+
+    def record(self):
+        """An event at the current stream's end (None on the CPU)."""
+        if not self.cuda:
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    @staticmethod
+    def wait_host(event) -> None:
+        if event is not None:
+            event.synchronize()
+
+    def fence(self) -> None:
+        """The host waits for everything queued on the current stream:
+        the one wait that ends a wave of fetches."""
+        self.wait_host(self.record())
+
+
+class StepGraph:
+    """``fn(*statics)`` -> a tuple of tensors, run as one CUDA graph.
+
+    ``statics`` are the graph's input tensors; a call copies each input
+    into the prefix of its static (so an input may be shorter than its
+    static: the rest keeps what it held and must be unread by ``fn``).
+    The returned tensors are the graph's own outputs, overwritten by the
+    next call: copy what is kept. Shapes and the host ints ``fn`` bakes
+    into its launches are fixed by the statics, so a caller keys its
+    graphs by the geometry that fixes them."""
+
+    def __init__(self, fn, statics: list[torch.Tensor]):
+        self.fn = fn
+        self.statics = statics
+        self.warm = False
+        self.graph = None
+        self.outs = None
+        self.launches: dict[str, int] = {}
+
+    def __call__(self, *inputs):
+        for s, x in zip(self.statics, inputs):
+            s.view(-1)[: x.numel()].copy_(x.reshape(-1))
+        if not self.warm:
+            self.warm = True
+            return self.fn(*self.statics)  # counted: its launches are real
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        return self.outs
+
+    def _capture(self) -> None:
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                outs = self.fn(*self.statics)
+        finally:
+            after = kernels.launch_counts()
+            self.launches = {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}
+            kernels.add_launches(self.launches, -1)
+        self.graph, self.outs = graph, outs

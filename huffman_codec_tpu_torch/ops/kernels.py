@@ -324,7 +324,10 @@ def _repad_scratch(dev: torch.device, words: int):
     kept for each stream (launches on one stream run in order), replaced by
     a larger one when a launch needs more, and zeroed again before the
     numbers (1 .. 2^31 - 1) come round. A CUDA graph replays the number it
-    captured, so under capture the words are zeroed in the graph itself."""
+    captured, so a capture gets a scratch of its own, zeroed in the graph
+    itself (its memory stays the graph's), and no two graphs share one."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(max(words, 1), dtype=torch.int64, device=dev), 1
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     with _repad_lock:  # two threads on one stream must not share a number
         buf, epoch = _repad_scratches.get(key, (None, 0))
@@ -335,8 +338,6 @@ def _repad_scratch(dev: torch.device, words: int):
         if epoch >= 1 << 31:
             buf.zero_()
             epoch = 1
-        if torch.cuda.is_current_stream_capturing():
-            buf[:words].zero_()
         _repad_scratches[key] = (buf, epoch)
     return buf, epoch
 
@@ -688,3 +689,14 @@ def launch_counts() -> dict[str, int]:
     counts = {k.__name__: k.launches for k in KERNELS}
     counts[TILE_MODE] = rle_diff_encode.tile_launches
     return counts
+
+
+def add_launches(counts: dict[str, int], sign: int = 1) -> None:
+    """Add ``counts`` (as ``launch_counts`` gives them) to the kernels'
+    counts, or take them away with ``sign=-1``: a CUDA graph replay
+    launches what its capture recorded without passing through the
+    wrappers, and the capture itself launches nothing."""
+    for k in KERNELS:
+        k.launches += sign * counts.get(k.__name__, 0)
+    rle_diff_encode.tile_launches += sign * counts.get(TILE_MODE, 0)
+

@@ -8,6 +8,10 @@ Usage::
             out = codec.encode(data)
     print(t.report())
 
+    codec.timer = StageTimer()  # the stage split of the sharded path
+    codec.encode(data)
+    codec.timer.resolve()  # device stages timed by CUDA events
+
     seconds = device_time(kernels.histogram256, (data, lengths))
 
     with device_trace("/tmp/trace") as path:  # a Chrome trace, Perfetto
@@ -32,6 +36,7 @@ QUEUE_CYCLES_PER_RUN = 400_000
 class StageTimer:
     stages: dict[str, float] = field(default_factory=dict)
     _t0: float = 0.0
+    _events: list = field(default_factory=list)
 
     def __enter__(self):
         self._t0 = time.perf_counter()
@@ -54,6 +59,28 @@ class StageTimer:
             self.stages[name] = self.stages.get(name, 0.0) + (
                 time.perf_counter() - t0
             )
+
+    @contextlib.contextmanager
+    def device_stage(self, name: str):
+        """Time the device work that the block queues on the current
+        stream between two CUDA events, without waiting for it;
+        ``resolve`` adds the time to the stage once the work has run."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        try:
+            yield
+        finally:
+            b.record()
+            self._events.append((name, a, b))
+
+    def resolve(self) -> None:
+        """Wait for the device stages' events and add their seconds."""
+        for name, a, b in self._events:
+            b.synchronize()
+            self.stages[name] = (self.stages.get(name, 0.0)
+                                 + a.elapsed_time(b) / 1e3)
+        self._events.clear()
 
     def report(self) -> str:
         total = self.stages.get("total") or sum(self.stages.values())

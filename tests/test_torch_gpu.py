@@ -864,3 +864,109 @@ def test_mesh_adapt_world1_nccl_equals_cpu_plain_path(nccl_world1):
                                           tl, dirs, c, tab, lw, mesh, w, bh,
                                           bs, True, lane)
     assert dec.cpu().numpy().tobytes() == raw.tobytes()
+
+
+# -- the step pipeline: CUDA graphs, no hidden synchronisation ---------------
+
+PIPE_CONFIGS = {
+    # the main path's step (256 x 64 KiB), two steps and a short third
+    "main": (dict(layout="sharded", step_chunks=256), 2 * (16 << 20) + 12345),
+    # chunk 1000 / lane 100 and lane 8: three steps, the last short
+    **{k: (dict(v, step_chunks=2), 5 * v["chunk_size"] + 123)
+       for k, v in ODD_CONFIGS.items() if v.get("layout") == "sharded"},
+}
+
+
+def _pipe_input(name, n):
+    if name == "main":
+        rng = np.random.default_rng(77)
+        i = np.arange(n)
+        return (((i // 512) * 2 + (i % 512) // 3 + rng.integers(-2, 3, n))
+                & 255).astype(np.uint8).tobytes()
+    return odd_config_input(name, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_diff", [False, True])
+@pytest.mark.parametrize("name", list(PIPE_CONFIGS))
+def test_step_graphs_equal_eager_steps(cuda, name, use_diff):
+    """Every output of a replayed encode step and decode step equals the
+    same step run launch by launch, and the pipelined container equals
+    the CPU plain path's."""
+    from huffman_codec_tpu_torch.models import chunked as tch
+
+    kw, n = PIPE_CONFIGS[name]
+    cfg = CodecConfig(use_diff=use_diff, **kw)
+    data = _pipe_input(name, n)
+    codec = TorchCodec(cfg)
+    blob = codec.encode(data)  # the warm-up, then the captures
+    assert codec.decode(blob) == data
+    assert [g.graph is not None for g in codec._graphs.values()] == [True] * 2
+    arr = np.frombuffer(data, np.uint8)
+    S, cs = cfg.step_chunks, cfg.chunk_size
+    for k in range(-(-n // (S * cs))):
+        base = codec._upload_step(arr, k * S, (k + 1) * S)
+        got = codec._run_encode_step(base, S)
+        want = tch._encode_step(base, S, cs, cfg.lane, use_diff, "canonical")
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    hdr, staged = codec.stage_decode_steps(blob)
+    for st in staged:
+        got = codec._decode_step(hdr, st, S).clone()
+        assert torch.equal(got, codec._decode_step_eager(hdr, st))
+    if name != "main":
+        assert blob == TorchCodec(cfg, device="cpu").encode(data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_diff", [False, True])
+def test_dispatch_halves_never_synchronise(cuda, use_diff):
+    """The dispatch halves of the pipelined encode and decode raise
+    nothing under ``torch.cuda.set_sync_debug_mode("error")`` once the
+    graphs are captured (a capture synchronises the device once)."""
+    kw, n = PIPE_CONFIGS["main"]
+    data = _pipe_input("main", n)
+    codec = TorchCodec(CodecConfig(use_diff=use_diff, **kw))
+    blob = codec.encode(data)
+    hdr = codec._parse(blob)
+    codec._run_decode(hdr, codec.stage_decode_steps(blob, hdr)[1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = codec.dispatch_sharded(data)
+        flat = codec._run_decode(hdr, codec.stage_decode_steps(blob, hdr)[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert codec.fetch_sharded(data, outs) == blob
+    assert flat[:n].cpu().numpy().tobytes() == data
+
+
+@pytest.mark.cuda
+def test_launch_counts_equal_with_and_without_graphs(cuda):
+    """A pipelined round trip counts the launches a step-by-step eager
+    round trip makes: each replay adds what its capture recorded, and the
+    capture counts nothing."""
+    kw, n = PIPE_CONFIGS["main"]
+    cfg = CodecConfig(use_diff=True, **kw)
+    data = _pipe_input("main", n)
+    codec = TorchCodec(cfg)
+    arr = np.frombuffer(data, np.uint8)
+    S = cfg.step_chunks
+    counts = []
+    for _ in range(2):  # the capturing run, then replays only
+        K.reset_launches()
+        blob = codec.encode(data)
+        assert codec.decode(blob) == data
+        counts.append(K.launch_counts())
+    K.reset_launches()
+    for k in range(-(-n // (S * cfg.chunk_size))):
+        codec.encode_chunk_range(arr, k * S, (k + 1) * S)
+    hdr, staged = codec.stage_decode_steps(blob)
+    for st in staged:
+        codec._decode_step_eager(hdr, st)
+    torch.cuda.synchronize()
+    eager = K.launch_counts()
+    assert counts[0] == counts[1] == eager
+    assert all(eager[k] == 3 for k in ("rle_diff_encode", "histogram256",
+                                       "lane_pack", "repad_words",
+                                       "lane_decode", "rle_expand"))

@@ -312,7 +312,8 @@ def _assemble(codec, got, name, raw, n):
                                 ("a", "meta", "tables", "rle_lens",
                                  "carries"))
     payload = _words_to_wire(_strip_payload(torch.from_numpy(buf),
-                                            torch.from_numpy(lw)))
+                                            torch.from_numpy(lw))[
+                                                : int(lw.sum())])
     return codec._container(payload, n, int(rl.sum()),
                             (lw.sum(axis=1, dtype=np.int64) * 32).tolist(),
                             tables, lw, (rl, car), zlib.crc32(raw[:n]))
