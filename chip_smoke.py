@@ -119,6 +119,19 @@ stages from CUDA events), the device encode and decode with graphs beside the ea
 launches (queued and host-paced), and the traced idle share of a round
 trip.
 
+Kernels 1 and 6 against the host C++ runtime (``native/hctpu.cpp``, an
+oracle written apart from the plain versions), on the 64 MiB main input's
+1024 chunks, diff off and on: kernel 1's stream of each chunk against the
+runtime's ``rle_encode`` of the chunk diffed with numpy from the byte
+before it (the carry the main path's stage uses, checked step by step),
+kernel 6's output of each row against the runtime's ``rle_decode`` of the
+row's stream, diff-reverted with numpy; ``build_lengths_pm`` against
+``build_lengths_exact`` in cost on every chunk; the runtime's v2
+container of the 16 MiB + 12,345 B prefix against ``formats``' v2
+functions; the one-chunk FGK forms (a launch each, counted) against the
+runtime's v1 body of the first chunk. The runtime's RLE times are printed
+beside the two kernels'.
+
 Each path's kernel launches are counted from zero over its round trips.
 The encode kernels (1, 1b and 3), ``repad_words`` (beside its library
 call, one ``masked_scatter_``) and the fat-lane decode kernel are also
@@ -2760,6 +2773,168 @@ def pipeline_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict):
     return launches
 
 
+ORACLE_TAIL = 12345  # bytes past 16 MiB of the v2 check's input
+
+
+def native_oracle_path(K, x: np.ndarray, errs: dict, card: str) -> None:
+    """Kernels 1 and 6 against the host C++ runtime (``native/hctpu.cpp``),
+    code written apart from the port's plain versions, on the 64 MiB main
+    input (1024 chunks), diff off and on. Kernel 1's stream of each chunk
+    must equal the runtime's ``rle_encode`` of that chunk diffed with numpy
+    from the byte before it (0 for the first: the carry of the main path's
+    stage, which the step-by-step stage is checked to give); kernel 6's
+    output of each row must equal the runtime's ``rle_decode`` of the row's
+    stream, diff-reverted with numpy. Then ``build_lengths_pm`` against
+    ``build_lengths_exact`` (the two-queue Huffman merge) on the streams'
+    histograms: equal total bits on every chunk. Then the runtime's v2
+    container on the 16 MiB + 12,345 B prefix against ``formats``'
+    ``parse_v2_container``/``make_v2_container``, and the one-chunk FGK
+    forms (``fgk_encode_chunk``/``fgk_decode_chunk``, one launch each,
+    counted) against the runtime's v1 body of the first chunk. Prints
+    every mismatch count (each also in ``errs``) and the runtime's times
+    beside the kernels'; any mismatch fails the run."""
+    from huffman_codec_tpu_torch import native
+    from huffman_codec_tpu_torch.formats import (
+        make_v2_container, parse_v2_container)
+    from huffman_codec_tpu_torch.models.chunked import (
+        _encode_sharded_stage, _sharded_cap)
+    from huffman_codec_tpu_torch.ops.canonical import (
+        build_lengths_exact, build_lengths_pm)
+    from huffman_codec_tpu_torch.ops.fgk import (
+        fgk_decode_chunk, fgk_encode_chunk, n_words_for)
+    from huffman_codec_tpu_torch.ops.pack import chunk_bytes
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    n = x.shape[0]
+    C = n // CS
+    rows = x.reshape(C, CS)
+    xd = torch.from_numpy(x).to(dev).view(C, CS)
+    full = torch.full((C,), CS, dtype=torch.int32, device=dev)
+    car = torch.cat([torch.zeros(1, dtype=torch.uint8, device=dev),
+                     xd[:-1, -1]])
+    car_np = np.concatenate([[0], rows[:-1, -1]]).astype(np.uint8)
+    cap = _sharded_cap(CS, "canonical", LANE)
+    bad: dict = {}
+
+    def count(name: str, n_bad: int) -> None:
+        bad[name] = bad.get(name, 0) + n_bad
+        errs[name] = max(errs.get(name, 0), n_bad)
+
+    for d in (False, True):
+        streams, lens = K.rle_diff_encode(xd, full, car, d, cap)
+        # the main path's stage, step by step, gives these lengths and
+        # carries
+        nc = 0
+        for k in range(C // STEP):
+            sl = slice(k * STEP, (k + 1) * STEP)
+            *_, rl, sc = _encode_sharded_stage(
+                xd[sl].reshape(-1), STEP * CS, car[k * STEP:k * STEP + 1],
+                d, CS, STEP, LANE)
+            nc += int((rl != lens[sl]).sum() + (sc != car[sl]).sum())
+        count("rle_diff_encode.stage_vs_oracle_carry", nc)
+        work = np.diff(rows, axis=1, prepend=car_np[:, None]) if d else rows
+        t = time.perf_counter()
+        want = [native.rle_encode(work[c].tobytes()) for c in range(C)]
+        host_enc_s = time.perf_counter() - t
+        s_np, l_np = streams.cpu().numpy(), lens.cpu().numpy()
+        got = [s_np[c, :l_np[c]].tobytes() for c in range(C)]
+        n1 = sum(g != w for g, w in zip(got, want))
+        count("rle_diff_encode.native", n1)
+        k1_ms = cuda_ms(lambda: K.rle_diff_encode(xd, full, car, d, cap),
+                        reps=10, warm=2, queued=True)
+
+        out = K.rle_expand(streams, lens, car, CS, d).cpu().numpy()
+        t = time.perf_counter()
+        dec = [native.rle_decode(g) for g in got]
+        host_dec_s = time.perf_counter() - t
+        ok = [c for c in range(C) if len(dec[c]) == CS]
+        ref = np.stack([np.frombuffer(dec[c], np.uint8) for c in ok])
+        if d:
+            ref = ((np.cumsum(ref, axis=1, dtype=np.int64)
+                    + car_np[ok, None]) & 255).astype(np.uint8)
+        n6 = C - len(ok) + int((out[ok] != ref).any(axis=1).sum())
+        count("rle_expand.native", n6)
+        k6_ms = cuda_ms(lambda: K.rle_expand(streams, lens, car, CS, d),
+                        reps=10, warm=2, queued=True)
+        log(f"native oracle, 64 MiB diff={d}, {C} chunks: kernel 1 rows != "
+            f"host rle_encode of the numpy-diffed chunk: {n1}; kernel 6 rows "
+            f"!= host rle_decode, diff-reverted: {n6}; stage lengths or "
+            f"carries off the oracle's carry rule: {nc}")
+        log(f"native oracle times, 64 MiB diff={d} on {card}: host C++ "
+            f"rle_encode {host_enc_s * 1e3:.3f} ms ({C} calls, diff "
+            f"excluded) vs kernel 1 {k1_ms:.4f} ms; host rle_decode "
+            f"{host_dec_s * 1e3:.3f} ms vs kernel 6 {k6_ms:.4f} ms "
+            f"(diff revert included)")
+
+        counts = K.histogram256(streams, lens).to(torch.int64)
+        pm = build_lengths_pm(counts)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ex = build_lengths_exact(counts)
+        torch.cuda.synchronize()
+        ex_ms = (time.perf_counter() - t) * 1e3
+        cost_pm, cost_ex = (pm * counts).sum(1), (ex * counts).sum(1)
+        count("build_lengths_pm.cost_vs_exact",
+              int((cost_pm != cost_ex).sum()))
+        same_rows = int((pm == ex).all(dim=1).sum())
+        log(f"code lengths, 64 MiB diff={d}: package-merge cost == exact "
+            f"Huffman cost on {int((cost_pm == cost_ex).sum())} of {C} "
+            f"chunks ({int(cost_pm.sum())} bits); lengths equal element by "
+            f"element on {same_rows} of {C}; build_lengths_exact "
+            f"{ex_ms:.1f} ms host-paced")
+        del streams, lens, out, s_np, got, dec, ref, counts, pm, ex
+
+    # -- the host runtime's v2 container and formats' v2 functions ---------
+    prefix = x[: (16 << 20) + ORACLE_TAIL].tobytes()
+    for d in (False, True):
+        t = time.perf_counter()
+        blob = native.v2_compress(prefix, use_diff=d)
+        v2_enc_s = time.perf_counter() - t
+        hdr, payload = parse_v2_container(blob)
+        checks = {
+            "orig_size": hdr.orig_size == len(prefix),
+            "n_chunks": hdr.n_chunks == -(-hdr.symbol_count
+                                          // hdr.chunk_size),
+            "payload": sum(-(-b // 8) for b in hdr.chunk_bits)
+            == len(payload),
+            "remake": make_v2_container(hdr, payload) == blob,
+        }
+        t = time.perf_counter()
+        checks["round_trip"] = native.v2_decompress(blob) == prefix
+        v2_dec_s = time.perf_counter() - t
+        count("v2.checks", sum(not v for v in checks.values()))
+        log(f"v2 {len(prefix)} B diff={d}: {len(blob)} B, {hdr.n_chunks} "
+            f"chunks of {hdr.chunk_size} symbols; checks {checks}; host "
+            f"v2_compress {v2_enc_s:.3f} s, v2_decompress {v2_dec_s:.3f} s")
+
+    # -- the one-chunk FGK forms: the first chunk's stream (diff on, carry
+    #    0), whose FGK bits are the runtime's v1 body of the chunk ---------
+    streams, lens = K.rle_diff_encode(xd[:1], full[:1], car[:1], True, cap)
+    m = int(lens[0])
+    K.reset_launches()
+    w, b = fgk_encode_chunk(streams[0], m, n_words_for(m))
+    back = fgk_decode_chunk(w, m, out_len=cap)
+    fl = K.launch_counts()
+    v1 = native.v1_compress(rows[0].tobytes(), use_diff=True)
+    body = chunk_bytes(w[None], b[None]).cpu().numpy().tobytes()
+    count("fgk_encode.chunk_vs_v1", int(body != v1[9:])
+          + int(int.from_bytes(v1[:8], "little") != m))
+    count("fgk_decode.chunk", int(not torch.equal(back[:m], streams[0, :m])))
+    if fl["fgk_encode"] != 1 or fl["fgk_decode"] != 1:
+        raise AssertionError(f"one-chunk FGK forms did not launch their "
+                             f"kernels once each: {fl}")
+    log(f"fgk_encode_chunk / fgk_decode_chunk on chunk 0 ({m} symbols, "
+        f"{int(b)} bits): launches {fl['fgk_encode']} / {fl['fgk_decode']};"
+        f" body == host v1_compress: {body == v1[9:]}; decode exact: "
+        f"{bad['fgk_decode.chunk'] == 0}")
+
+    log(f"native oracle mismatches: {json.dumps(bad)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if any(bad.values()):
+        raise AssertionError(f"native oracle mismatches: {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3024,6 +3199,9 @@ def main() -> int:
     plaunches = pipeline_path(K, TorchCodec, CodecConfig, x, errs)
     for row in rows:
         row["launches_pipeline"] = plaunches[row["name"]]
+
+    # -- kernels 1 and 6 against the host C++ runtime ------------------------
+    native_oracle_path(K, x, errs, card)
 
     # -- shapes that do not divide by 16 -------------------------------------
     slaunches = shapes_path(K, TorchCodec, CodecConfig, errs)

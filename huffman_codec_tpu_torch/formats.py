@@ -6,11 +6,13 @@ huffman_codec_tpu/formats.py and huffman_codec_tpu/models/chunked.py).
 v1 is the reference-compatible format,
 ``[byteCount u64 LE][flags u8][huffman bits, MSB-first, 0-padded]``, where
 byteCount is the post-transform symbol count; v2 is the native chunked
-FGK container and starts with ``V2_MAGIC``."""
+FGK container (``make_v2_container``, ``parse_v2_container``) and starts
+with ``V2_MAGIC``."""
 
 from __future__ import annotations
 
 import struct
+from dataclasses import dataclass
 
 FLAG_DIFF = 0x80  # bit7: diff model used
 FLAG_ADAPT = 0x40  # bit6: adaptive block RLE used
@@ -25,11 +27,54 @@ ENTROPY = {"fgk": ENTROPY_FGK, "canonical": ENTROPY_CANONICAL}
 GROUP_K = 64  # tiles per manifest group in grouped-manifest mode
 
 V2_MAGIC = b"HCTPU\x02"  # 6 bytes; cannot be a sane v1 byteCount prefix
+V2_VERSION = 1
 HUFF_HEADER_BYTES = 9  # v1: byteCount u64 LE, flags u8
 
 
 def is_v2(data: bytes) -> bool:
     return data[: len(V2_MAGIC)] == V2_MAGIC
+
+
+@dataclass(frozen=True)
+class V2Header:
+    flags: int  # same bit meanings as v1 (FLAG_DIFF | FLAG_ADAPT)
+    orig_size: int  # original (pre-transform) input size in bytes
+    symbol_count: int  # post-transform symbol count (sum over chunks)
+    chunk_size: int  # symbols per chunk (the last chunk may be short)
+    chunk_bits: tuple[int, ...]  # compressed bit length per chunk
+
+    @property
+    def n_chunks(self) -> int:
+        return len(self.chunk_bits)
+
+
+def make_v2_container(header: V2Header, payload: bytes) -> bytes:
+    """The v2 layout: ``[magic 6B][version u8][flags u8]``, then
+    ``[orig_size u64 LE][symbol_count u64 LE][chunk_size u32 LE]
+    [n_chunks u32 LE]``, ``[chunk_bits u64 LE x n_chunks]`` and the
+    payload, each chunk's FGK bitstream 0-padded to a byte, in chunk
+    order."""
+    return b"".join([
+        V2_MAGIC, bytes([V2_VERSION, header.flags]),
+        struct.pack("<QQII", header.orig_size, header.symbol_count,
+                    header.chunk_size, header.n_chunks),
+        struct.pack(f"<{header.n_chunks}Q", *header.chunk_bits), payload])
+
+
+def parse_v2_container(data: bytes) -> tuple[V2Header, bytes]:
+    """Inverse of ``make_v2_container``: (header, payload). A truncated
+    blob raises what ``struct.unpack`` (or the indexing) raises."""
+    if not is_v2(data):
+        raise ValueError("not a v2 container")
+    if data[6] != V2_VERSION:
+        raise ValueError(f"unsupported v2 version {data[6]}")
+    orig_size, symbol_count, chunk_size, n_chunks = struct.unpack(
+        "<QQII", data[8:32])
+    off = 32 + 8 * n_chunks
+    chunk_bits = struct.unpack(f"<{n_chunks}Q", data[32:off])
+    return V2Header(flags=data[7], orig_size=orig_size,
+                    symbol_count=symbol_count, chunk_size=chunk_size,
+                    chunk_bits=chunk_bits), data[off:]
 
 
 def make_huff_header(byte_count: int, use_diff: bool,

@@ -120,6 +120,7 @@ from huffman_codec_tpu_torch.ops.fgk import n_words_for
 from huffman_codec_tpu_torch.ops.kernels import lane_words_cap
 from huffman_codec_tpu_torch.ops.pack import chunk_bytes, chunk_words
 from huffman_codec_tpu_torch.ops.rle import (
+    CLASSIFY_BLOCK,
     rle_decode,
     rle_encode,
     rle_encoded_size,
@@ -470,7 +471,7 @@ def _decode_stream_tail(stream: torch.Tensor, total: int, out_len: int,
                         use_diff: bool):
     """Whole-stream RLE decode and diff revert of a flat (N,) stream."""
     n = torch.tensor([total], dtype=torch.int32, device=stream.device)
-    out, m = rle_decode(stream[None, :], n, out_len)
+    out, m = rle_decode(stream[None, :], n, out_len, block=CLASSIFY_BLOCK)
     return (diff_revert(out[0]) if use_diff else out[0]), m[0]
 
 

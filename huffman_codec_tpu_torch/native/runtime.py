@@ -103,12 +103,25 @@ def _load():
         lib.hctpu_v2_decompress.argtypes = [
             u8p, ctypes.c_uint64, ctypes.c_int, out_t, n_t,
         ]
+        lib.hctpu_rle_encode.argtypes = [u8p, ctypes.c_uint64, out_t, n_t]
+        lib.hctpu_rle_decode.argtypes = [u8p, ctypes.c_uint64, out_t, n_t]
         lib.hctpu_free.argtypes = [u8p]
         for fn in (lib.hctpu_v1_compress, lib.hctpu_v1_decompress,
-                   lib.hctpu_v2_compress, lib.hctpu_v2_decompress):
+                   lib.hctpu_v2_compress, lib.hctpu_v2_decompress,
+                   lib.hctpu_rle_encode, lib.hctpu_rle_decode):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def available() -> bool:
+    """Whether the runtime builds and loads here. A query only: every
+    other function of this module raises when it does not."""
+    try:
+        _load()
+        return True
+    except (OSError, RuntimeError, AttributeError):  # build, load, symbol
+        return False
 
 
 def _buf(data: bytes):
@@ -156,3 +169,13 @@ def v2_compress(data: bytes, use_diff: bool = False, use_adapt: bool = False,
 def v2_decompress(blob: bytes, n_threads: int = 0) -> bytes:
     threads = n_threads or (os.cpu_count() or 1)
     return _call("hctpu_v2_decompress", blob, threads)
+
+
+def rle_encode(data: bytes) -> bytes:
+    """MNP-5 byte RLE of the whole of ``data`` (the reference's applyRLE)."""
+    return _call("hctpu_rle_encode", data)
+
+
+def rle_decode(data: bytes) -> bytes:
+    """The inverse of ``rle_encode`` (the reference's revertRLE)."""
+    return _call("hctpu_rle_decode", data)

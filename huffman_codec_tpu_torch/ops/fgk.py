@@ -263,3 +263,29 @@ def _decode_batch(words, counts, out_len: int):
         fgk_update(st, sym, ok)
         out[:, i] = torch.where(ok, sym, 0).to(torch.uint8)
     return out
+
+
+def fgk_encode_chunk(symbols: torch.Tensor, length, n_words: int):
+    """One chunk: the first ``length`` symbols of (L,) uint8 ``symbols``
+    -> (words (n_words,) int32, the codes MSB-first; total bits 0-d
+    int32). A CUDA tensor launches the ``fgk_encode`` kernel with one row,
+    a CPU tensor runs the plain version."""
+    from huffman_codec_tpu_torch.ops import kernels  # kernels imports us
+
+    ln = torch.as_tensor(length, device=symbols.device)
+    words, bits = kernels.fgk_encode(symbols.reshape(1, -1),
+                                     ln.to(torch.int32).reshape(1), n_words)
+    return words[0], bits[0]
+
+
+def fgk_decode_chunk(words: torch.Tensor, count, out_len: int = 0):
+    """One chunk: ``count`` symbols from (W,) int32 ``words`` -> (out_len,)
+    uint8, zero past ``count``. A CUDA tensor launches the ``fgk_decode``
+    kernel with one row, a CPU tensor runs the plain version."""
+    if out_len <= 0:
+        raise ValueError("fgk_decode_chunk needs a static out_len")
+    from huffman_codec_tpu_torch.ops import kernels  # kernels imports us
+
+    cnt = torch.as_tensor(count, device=words.device)
+    return kernels.fgk_decode(words.reshape(1, -1),
+                              cnt.to(torch.int32).reshape(1), out_len)[0]

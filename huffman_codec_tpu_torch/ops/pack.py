@@ -32,13 +32,15 @@ def _shift(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def pack_codes(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor,
-               n_words: int):
+               n_words: int, max_len: int = 64):
     """Codes laid end to end, MSB-first, into ``n_words`` words.
 
     lo, hi, lens (..., n): code i is the right-aligned value
-    ``(hi << 32) | lo`` of ``lens[i]`` <= 64 bits (u32 halves in any integer
-    dtype). Returns (words (..., n_words) int32, zero past the last code;
-    total bits (...,) int32). Pieces past ``n_words`` are dropped."""
+    ``(hi << 32) | lo`` of ``lens[i]`` <= ``max_len`` <= 64 bits (u32
+    halves in any integer dtype). ``max_len`` <= 32 cuts each code into
+    at most two words and reads ``lo`` only, as the JAX package does.
+    Returns (words (..., n_words) int32, zero past the last code; total
+    bits (...,) int32). Pieces past ``n_words`` are dropped."""
     lead = lens.shape[:-1]
     n = lens.shape[-1]
     dev = lens.device
@@ -49,16 +51,20 @@ def pack_codes(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor,
     incl = torch.cumsum(ln, dim=1)
     off = incl - ln
     total = incl[:, -1] if n else torch.zeros(R, dtype=torch.int64, device=dev)
-    # the code in a 96-bit window of three words from word off >> 5, its
-    # MSB at window bit off & 31: word j of the window is the 64-bit value
-    # shifted left by s - 32 * (2 - j), s = 96 - (off & 31) - len
-    s = 96 - (off & 31) - ln
+    # the code in a window of n_win words from word off >> 5, its MSB at
+    # window bit off & 31: word j of the window is the 64-bit value
+    # shifted left by s - 32 * (n_win - 1 - j), s = 32 * n_win - (off &
+    # 31) - len
+    n_win = 2 if max_len <= 32 else 3
+    s = 32 * n_win - (off & 31) - ln
     w0 = off >> 5
     dump = n_words  # one spare column takes the dropped pieces
     acc = torch.zeros((R, n_words + 1), dtype=torch.int64, device=dev)
-    for j in range(3):
-        t = s - 32 * (2 - j)
-        piece = _shift(hi, t + 32) | _shift(lo, t)
+    for j in range(n_win):
+        t = s - 32 * (n_win - 1 - j)
+        piece = _shift(lo, t)
+        if n_win == 3:
+            piece = piece | _shift(hi, t + 32)
         piece = torch.where(ln > 0, piece, 0)
         idx = (w0 + j).clamp(max=dump)
         acc.scatter_add_(1, idx, piece)

@@ -24,6 +24,9 @@ from __future__ import annotations
 import torch
 
 RESET_CHUNK = 258  # 255 (max count byte) + 3 literals
+# the port's classification block: 32 serial positions and a doubling
+# prefix over the blocks beat JAX's 512 positions in torch ops
+CLASSIFY_BLOCK = 32
 
 
 def rle_max_encoded_len(n: int) -> int:
@@ -50,29 +53,48 @@ def _emissions(x: torch.Tensor, length: torch.Tensor):
     return emit_lit, emit_cnt, q
 
 
-def rle_encoded_size(x: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
-    """Encoded byte count (C,) int64 of each (C, n) row's valid prefix:
-    the emission rule with the writes left out, for the adaptive search
-    and the scan-direction pick."""
-    emit_lit, emit_cnt, _ = _emissions(x, length)
-    return emit_lit.sum(dim=1) + emit_cnt.sum(dim=1)
+def _rows(x: torch.Tensor, length):
+    """(x as (C, n) rows, the lengths as (C,) int64, whether x was one
+    1-D row); ``length`` None means whole rows."""
+    one = x.dim() == 1
+    rows = x[None, :] if one else x
+    if length is None:
+        length = rows.shape[1]
+    ln = torch.as_tensor(length, device=x.device).to(torch.int64)
+    return rows, ln.reshape(1) if one else ln.expand(rows.shape[0]), one
 
 
-def rle_encode(x: torch.Tensor, length: torch.Tensor, out_len: int):
-    """MNP-5 encode of each (C, n) uint8 row's valid prefix. Returns
+def rle_encoded_size(x: torch.Tensor, length) -> torch.Tensor:
+    """Encoded byte count of each (C, n) row's valid prefix, (C,) int64
+    (0-d for one 1-D row): the emission rule with the writes left out, for
+    the adaptive search and the scan-direction pick."""
+    rows, ln, one = _rows(x, length)
+    emit_lit, emit_cnt, _ = _emissions(rows, ln)
+    size = emit_lit.sum(dim=1) + emit_cnt.sum(dim=1)
+    return size[0] if one else size
+
+
+def rle_encode(x: torch.Tensor, length=None, out_len: int | None = None):
+    """MNP-5 encode of each (C, n) uint8 row's valid prefix (``length``,
+    (C,) or one value; None: whole rows), or of one 1-D row. Returns
     (streams (C, out_len) uint8, zero past each row's end, and the encoded
-    lengths (C,) int32)."""
-    C, n = x.shape
-    emit_lit, emit_cnt, q = _emissions(x, length)
+    lengths (C,) int32); for a 1-D row the stream is (out_len,) and the
+    length 0-d. ``out_len`` None means ``rle_max_encoded_len(n)``."""
+    rows, ln, one = _rows(x, length)
+    C, n = rows.shape
+    if out_len is None:
+        out_len = rle_max_encoded_len(n)
+    emit_lit, emit_cnt, q = _emissions(rows, ln)
     per = emit_lit.to(torch.int64) + emit_cnt.to(torch.int64)
     off = torch.cumsum(per, dim=1) - per
     total = per.sum(dim=1)
     out = torch.zeros(C * out_len, dtype=torch.uint8, device=x.device)
     row = torch.arange(C, device=x.device)[:, None] * out_len
-    out[(row + off)[emit_lit]] = x[emit_lit]
+    out[(row + off)[emit_lit]] = rows[emit_lit]
     cnt_at = row + off + emit_lit.to(torch.int64)
     out[cnt_at[emit_cnt]] = (q - 2)[emit_cnt].to(torch.uint8)
-    return out.view(C, out_len), total.to(torch.int32)
+    out, total = out.view(C, out_len), total.to(torch.int32)
+    return (out[0], total[0]) if one else (out, total)
 
 
 def rle_concat(rows: torch.Tensor, lens: torch.Tensor, out_len: int):
@@ -117,7 +139,7 @@ def _fsm_step(match, count, c):
 
 
 def rle_classify(data: torch.Tensor, length: torch.Tensor,
-                 block: int = 32) -> torch.Tensor:
+                 block: int = CLASSIFY_BLOCK) -> torch.Tensor:
     """(C, n) bool: True where data[c, i] is a count byte of row c's MNP-5
     stream (i < length[c]). The result does not depend on ``block``."""
     if block < 2:
@@ -184,7 +206,18 @@ def rle_expand_runs(data: torch.Tensor, is_cnt: torch.Tensor,
     return out.to(torch.uint8), total
 
 
-def rle_decode(data: torch.Tensor, length: torch.Tensor, out_len: int):
-    """Plain MNP-5 decode of (C, n) rows: classification then expansion.
-    Returns ((C, out_len) uint8, decoded lengths (C,))."""
-    return rle_expand_runs(data, rle_classify(data, length), length, out_len)
+def rle_decode(data: torch.Tensor, length=None, out_len: int = 0,
+               block: int = 512):
+    """Plain MNP-5 decode of (C, n) rows (``length`` (C,) or one value;
+    None: whole rows), or of one 1-D row: classification in blocks of
+    ``block`` bytes (the result does not depend on it), then expansion.
+    Returns ((C, out_len) uint8, zero past each row's end, and the decoded
+    lengths (C,)); for a 1-D row (out_len,) and a 0-d length."""
+    if block < 2:
+        raise ValueError("block must be >= 2")
+    if out_len <= 0:
+        raise ValueError("rle_decode needs a static out_len bound")
+    rows, ln, one = _rows(data, length)
+    out, total = rle_expand_runs(rows, rle_classify(rows, ln, block), ln,
+                                 out_len)
+    return (out[0], total[0]) if one else (out, total)

@@ -105,8 +105,9 @@ class FGKTree:
         equal-freq parent stays put (huffman.cpp:117-123), transiently
         breaking the non-increasing order inside the updated node's subtree.
         The DFS is immune because such dirty nodes are never reachable (their
-        subtree root has freq <= f). The FGK kernels use the equivalent fast
-        rule: the lowest slot with freq == f within [0 .. k].
+        subtree root has freq <= f). ``fast_find_succ_slot`` below is the
+        equivalent rule the FGK kernels use; tests/test_torch_fgk_fast_rule.py
+        holds the two against each other.
         """
 
         def dfs(k: int) -> int:
@@ -121,6 +122,23 @@ class FGKTree:
             return NIL
 
         return dfs(0)
+
+    def fast_find_succ_slot(self, f: int, k_slot: int) -> int:
+        """The fast rule: the lowest slot with freq == f within the clean
+        sorted prefix [0 .. k_slot], by binary search. The prefix is sorted
+        because every node dirtied earlier in the current climb is a strict
+        descendant of the climbing node and so lives at a higher slot. The
+        kernels of csrc/fgk.cu find the same slot with a warp minimum."""
+        lo, hi = 0, k_slot + 1
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if self.freq[mid] > f:
+                lo = mid + 1
+            else:
+                hi = mid
+        if lo <= k_slot and self.freq[lo] == f:
+            return lo
+        return NIL
 
     def _swap(self, a: int, b: int) -> None:
         """Exchange the subtree contents of slots a and b (huffman.cpp:186-217).

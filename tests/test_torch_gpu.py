@@ -970,3 +970,40 @@ def test_launch_counts_equal_with_and_without_graphs(cuda):
     assert all(eager[k] == 3 for k in ("rle_diff_encode", "histogram256",
                                        "lane_pack", "repad_words",
                                        "lane_decode", "rle_expand"))
+
+
+@pytest.mark.cuda
+def test_gpu_one_chunk_fgk_forms_launch_kernels(cuda):
+    """``fgk_encode_chunk`` / ``fgk_decode_chunk`` on a CUDA row launch the
+    FGK kernels once each and give the host runtime's v1 body."""
+    from huffman_codec_tpu_torch.ops.fgk import (fgk_decode_chunk,
+                                                 fgk_encode_chunk)
+    x = match_plain_rows()[0][0].tobytes()
+    stream = runtime.rle_encode(x)  # v1 codes the RLE stream of its input
+    ln = len(stream)
+    row = torch.frombuffer(bytearray(stream), dtype=torch.uint8).to(cuda)
+    K.reset_launches()
+    w, b = fgk_encode_chunk(row, ln, n_words_for(ln))
+    back = fgk_decode_chunk(w, ln, out_len=ln)
+    counts = K.launch_counts()
+    assert counts["fgk_encode"] == 1 and counts["fgk_decode"] == 1
+    v1 = runtime.v1_compress(x)
+    assert int.from_bytes(v1[:8], "little") == ln
+    assert chunk_bytes(w[None], b[None]).cpu().numpy().tobytes() == v1[9:]
+    assert torch.equal(back, row)
+    with pytest.raises(ValueError):
+        fgk_decode_chunk(w, ln, out_len=0)
+
+
+@pytest.mark.cuda
+def test_gpu_code_lengths_equal_cpu(cuda):
+    """The exact and Kraft code lengths on the card equal their CPU runs, and
+    package-merge's cost equals the exact one's on every row."""
+    chunks, lens, carries = _rows(cuda)
+    s, ln = K.rle_diff_encode(chunks, lens, carries, True, CAP)
+    counts = K.histogram256(s, ln).to(torch.int64)
+    for name in ("build_lengths_exact", "build_lengths_kraft"):
+        fn = getattr(tcan, name)
+        assert torch.equal(fn(counts).cpu(), fn(counts.cpu()))
+    ex, pm = tcan.build_lengths_exact(counts), tcan.build_lengths_pm(counts)
+    assert torch.equal((ex * counts).sum(1), (pm * counts).sum(1))
