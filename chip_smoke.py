@@ -54,7 +54,10 @@ the stages of the encode and the decode, and the peak device memory.
 FGK entropy (``entropy="fgk"``) in every layout and the device
 ``V1Codec``: holds the two FGK kernels against their plain versions (the
 main step's RLE streams, diff on, cut to 2048 symbols, with the FGK edge
-batch of ``huffman_codec_tpu_torch/edge_cases.py``); at the main path's
+batch of ``huffman_codec_tpu_torch/edge_cases.py``); in a stress pass over
+32 seeds of the successor streams and the edge rows, against the first
+design of the kernels (``kernel_variants/fgk_warp.cu``, built beside the
+package's) and the host runtime's v1 encoder; at the main path's
 shapes, where the plain loop (once a symbol) cannot run, against a second
 oracle: the encoder, for codes past 32 bits and for every chunk of a full
 step with diff and without, against the host runtime's v1 encoder (RLE
@@ -1541,17 +1544,30 @@ CHASE_SOURCE = Path(__file__).resolve().parent / "kernel_variants" / \
     "smem_chase.cu"
 CHASE_SLOTS = 1024
 CHASE_STEPS = 1 << 20
+# the first design of the FGK kernels (a warp a chunk), which the stress
+# pass holds the package's to
+WARP_SOURCE = Path(__file__).resolve().parent / "kernel_variants" / \
+    "fgk_warp.cu"
+FGK_STRESS_SEEDS = 32
 
 
-def start_chase_build(_build):
-    """Start nvcc on the shared-memory probe beside the kernels' build;
-    returns (process, library path)."""
-    out = _build.BUILD_DIR / "probe" / "smem_chase.so"
+def start_probe_build(_build, source: Path):
+    """Start nvcc on a source of ``kernel_variants/`` beside the kernels'
+    build; returns (process, library path)."""
+    out = _build.BUILD_DIR / "probe" / f"{source.stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
-           str(CHASE_SOURCE)]
+           str(source)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), out
+
+
+def probe_library(build, what: str) -> ctypes.CDLL:
+    proc, out = build
+    text, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"{what} did not build:\n{text}")
+    return ctypes.CDLL(str(out))
 
 
 def shared_access(build) -> dict:
@@ -1559,11 +1575,7 @@ def shared_access(build) -> dict:
     chases a random cycle of ``CHASE_SLOTS`` slots ``CHASE_STEPS`` and
     twice as many steps; the time difference over the extra steps (CUDA
     events) is an access's ns, clock64 over the longer chase its cycles."""
-    proc, out = build
-    text, _ = proc.communicate()
-    if proc.returncode:
-        raise RuntimeError(f"smem_chase.cu did not build:\n{text}")
-    fn = ctypes.CDLL(str(out)).smem_chase_launch
+    fn = probe_library(build, "smem_chase.cu").smem_chase_launch
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -1612,11 +1624,81 @@ def fgk_bound(nbytes: int, bits: int, max_bits: int, access: dict) -> dict:
             "binds": "latency floor" if floor > bound else by}
 
 
-def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access):
+def fgk_stress(K, warp: ctypes.CDLL, dev) -> None:
+    """The FGK stress pass: for each of ``FGK_STRESS_SEEDS`` seeds, the
+    successor streams of ``edge_cases.fgk_successor_streams`` (MNP-5 coded
+    by the host runtime, as v1 codes them) and the FGK edge rows in one
+    batch, through the package's kernels and the first design's
+    (``fgk_warp.cu``): the encoders' words and bits and the decoders'
+    output on the package's words equal, the round trip exact, and every
+    successor stream's words equal to the host runtime's v1 body. Any
+    mismatch fails the run."""
+    from huffman_codec_tpu_torch.edge_cases import (fgk_edge_rows,
+                                                    fgk_successor_streams)
+    from huffman_codec_tpu_torch.native import runtime
+    from huffman_codec_tpu_torch.ops.fgk import n_words_for
+    from huffman_codec_tpu_torch.ops.pack import chunk_bytes
+
+    enc, dcd = warp.fgk_encode_launch, warp.fgk_decode_launch
+    enc.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    dcd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    enc.restype = dcd.restype = ctypes.c_int
+    sid = torch.cuda.current_stream().cuda_stream
+    bad = {"vs first design": 0, "round trip": 0, "vs host v1": 0}
+    n_rows = n_streams = 0
+    t0 = time.perf_counter()
+    for seed in range(FGK_STRESS_SEEDS):
+        streams = [s for v in fgk_successor_streams(seed).values()
+                   for s in v]
+        coded = [runtime.rle_encode(s.tobytes()) for s in streams]
+        er, el = fgk_edge_rows(2100, seed)
+        n = max(max(len(c) for c in coded), er.shape[1])
+        rows = np.zeros((len(coded) + len(el), n), np.uint8)
+        for i, cd in enumerate(coded):
+            rows[i, :len(cd)] = np.frombuffer(cd, np.uint8)
+        rows[len(coded):, :er.shape[1]] = er
+        lens = np.r_[[len(cd) for cd in coded], el].astype(np.int32)
+        xr, ln = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
+        C, nw = xr.shape[0], n_words_for(n)
+        w, b = K.fgk_encode(xr, ln, nw)
+        d = K.fgk_decode(w, ln, n)
+        ww, wb, wd = (torch.empty_like(t) for t in (w, b, d))
+        for err in (enc(xr.data_ptr(), ln.data_ptr(), ww.data_ptr(),
+                        wb.data_ptr(), C, n, nw, sid),
+                    dcd(w.data_ptr(), ln.data_ptr(), wd.data_ptr(), C, nw, n,
+                        sid)):
+            if err:
+                raise RuntimeError(f"fgk_warp.cu: CUDA error {err}")
+        torch.cuda.synchronize()
+        bad["vs first design"] += int(((ww != w).any(1) | (wb != b)
+                                       | (wd != d).any(1)).sum())
+        valid = torch.arange(n, device=dev)[None, :] < ln[:, None]
+        bad["round trip"] += int((d != torch.where(valid, xr, 0)).any(1)
+                                 .sum())
+        for i, st in enumerate(streams):
+            body = runtime.v1_compress(st.tobytes())[9:]
+            got = chunk_bytes(w[i:i + 1], b[i:i + 1]).cpu().numpy().tobytes()
+            bad["vs host v1"] += got != body
+        n_rows += C
+        n_streams += len(streams)
+    n_bad = sum(bad.values())
+    log(f"fgk stress: {FGK_STRESS_SEEDS} seeds, {n_rows} rows ({n_streams} "
+        f"successor streams, the rest FGK edge rows), the package's kernels "
+        f"against the first design (fgk_warp.cu) and the host runtime's v1 "
+        f"encoder: {n_bad} mismatches {bad} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if n_bad:
+        raise AssertionError(f"fgk stress: {n_bad} mismatches {bad}")
+
+
+def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access, warp):
     """FGK entropy in every layout and the device V1Codec: the two FGK
-    kernels against their plain versions and a second oracle (the host
-    runtime's v1 encoder), counted round trips, containers against the CPU
-    plain path, timings. Returns (the launch counts of the sharded FGK
+    kernels against their plain versions, a second oracle (the host
+    runtime's v1 encoder) and, in the stress pass, their first design
+    (``warp``, the library of ``fgk_warp.cu``), counted round trips,
+    containers against the CPU plain path, timings. Returns (the launch counts of the sharded FGK
     round trips, the kernels' rows)."""
     from huffman_codec_tpu_torch.edge_cases import fgk_deep_row, fgk_edge_rows
     from huffman_codec_tpu_torch.models.chunked import (
@@ -1676,6 +1758,7 @@ def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access):
     log(f"fgk deep row ({deep.size} symbols, fresh codes of 33 bits): "
         "kernel stream == host runtime's v1 body, decodes exactly")
     del rows, w, pw, d, pd, st
+    fgk_stress(K, warp, dev)
 
     # -- a full step against the host runtime's v1 encoder, diff off and on.
     #    RLE restarts every chunk, so a chunk's FGK stream is the v1 body of
@@ -2961,10 +3044,13 @@ def main() -> int:
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    chase_build = start_chase_build(_build)  # alongside the kernels' nvcc
+    # the probes alongside the kernels' nvcc
+    chase_build = start_probe_build(_build, CHASE_SOURCE)
+    warp_build = start_probe_build(_build, WARP_SOURCE)
     built = _build.build_all()
     log(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
     access = shared_access(chase_build)
+    warp = probe_library(warp_build, "fgk_warp.cu")
     t0 = time.perf_counter()
     log(f"build: host runtime {native_runtime.build().name} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3232,7 +3318,7 @@ def main() -> int:
         row["launches_adaptive"] = alaunches[row["name"]]
     rows += [row_1b, row_walk]
     flaunches, fgk_rows = fgk_path(K, TorchCodec, V1Codec, CodecConfig, x,
-                                   errs, access)
+                                   errs, access, warp)
     for row in rows:
         row["launches_fgk"] = flaunches[row["name"]]
     rows += fgk_rows

@@ -456,6 +456,41 @@ def fgk_deep_row(seed: int) -> np.ndarray:
     return np.r_[body, np.arange(200, 205, dtype=np.uint8)]
 
 
+def fgk_successor_streams(seed: int) -> dict:
+    """Streams for the FGK kernels' successor (the first slot of k's run
+    of weight in the sorted prefix [0..k]), by the case they reach: name
+    -> list of uint8 arrays.
+
+    * ``pair``: each new symbol repeated at once, in runs that shrink as
+      the alphabet grows, so the repeated leaf's sibling is the NYT node
+      and its successor its own parent (no swap, its weight passes the
+      parent's for one level), with an earlier symbol now and then;
+    * ``round_robin``: all 256 symbols once, then rounds over all of them
+      or a subset, some symbols skipped: long runs of one weight;
+    * ``fibonacci``: 25 symbols in Fibonacci counts (196,418 bytes, no
+      three equal in a row) and five fresh symbols, whose codes, the NYT
+      code and 8 raw bits, pass 32 bits."""
+    rng = np.random.default_rng(seed)
+    pair = []
+    for n_sym in (16, 64, 200, 256):
+        out = []
+        for i, s in enumerate(rng.permutation(N_SYM)[:n_sym]):
+            out += [s] * max(1, int(64 * 0.93 ** i))
+            if i and rng.random() < 0.3:
+                out.append(out[int(rng.integers(0, len(out) - 1))])
+        pair.append(np.array(out, np.uint8))
+    perm = rng.permutation(N_SYM).astype(np.uint8)
+    rounds = [perm]
+    for _ in range(6):
+        rounds.append(perm[rng.random(N_SYM) > 0.1])
+    subset = perm[:100]
+    robin = [np.tile(perm, 8), np.concatenate(rounds),
+             np.r_[perm[::-1], np.tile(subset, 10)].astype(np.uint8)]
+    fib = np.r_[_no_three_runs(_fibonacci(25), rng),
+                rng.permutation(np.arange(230, 256))[:5]].astype(np.uint8)
+    return {"pair": pair, "round_robin": robin, "fibonacci": [fib]}
+
+
 def adapt_v1_blob(payload: bytes) -> bytes:
     """Raw payload bytes FGK-coded into a v1 adaptive blob (flags:
     adaptive only), so that a payload can be broken inside the Huffman

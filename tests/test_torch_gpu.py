@@ -15,8 +15,9 @@ torch = pytest.importorskip("torch")
 from huffman_codec_tpu_torch import CodecConfig, TorchCodec, V1Codec  # noqa: E402
 from huffman_codec_tpu_torch.edge_cases import (  # noqa: E402
     ODD_CONFIGS, broken_adapt_v1_blobs, fgk_deep_row, fgk_edge_rows,
-    lane_edge_rows, match_plain_rows, odd_config_input, pack_edge_rows,
-    pack_lane_rows, rle_edge_rows, rle_encode_edge_rows)
+    fgk_successor_streams, lane_edge_rows, match_plain_rows,
+    odd_config_input, pack_edge_rows, pack_lane_rows, rle_edge_rows,
+    rle_encode_edge_rows)
 from huffman_codec_tpu_torch.native import runtime  # noqa: E402
 from huffman_codec_tpu_torch.ops.fgk import n_words_for  # noqa: E402
 from huffman_codec_tpu_torch.ops.pack import chunk_bytes  # noqa: E402
@@ -611,6 +612,42 @@ def test_fgk_kernels_codes_past_32_bits(cuda):
     v1 = runtime.v1_compress(row.tobytes())
     assert chunk_bytes(w, b).cpu().numpy().tobytes() == v1[9:]
     assert torch.equal(K.fgk_decode(w, ln, n), x)
+
+
+FGK_PLAIN_CUT = 800  # symbols of a row the plain loop (once a symbol) runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pair", "round_robin", "fibonacci"])
+def test_fgk_kernels_on_successor_streams(cuda, name):
+    # the successor's cases: a leaf whose successor is its parent, long
+    # runs of one weight, fresh codes past 32 bits. Each stream MNP-5 coded
+    # by the host runtime, as the v1 format codes it, so the encoder's
+    # words are the runtime's v1 body
+    streams = fgk_successor_streams(5)[name]
+    coded = [runtime.rle_encode(s.tobytes()) for s in streams]
+    n = max(len(c) for c in coded)
+    rows = np.zeros((len(coded), n), np.uint8)
+    for i, c in enumerate(coded):
+        rows[i, :len(c)] = np.frombuffer(c, np.uint8)
+    x = torch.from_numpy(rows).to(cuda)
+    ln = torch.tensor([len(c) for c in coded], dtype=torch.int32,
+                      device=cuda)
+    w, b = K.fgk_encode(x, ln, n_words_for(n))
+    for i, s in enumerate(streams):
+        assert chunk_bytes(w[i:i + 1], b[i:i + 1]).cpu().numpy().tobytes() \
+            == runtime.v1_compress(s.tobytes())[9:], i
+    valid = torch.arange(n, device=cuda)[None, :] < ln[:, None]
+    assert torch.equal(K.fgk_decode(w, ln, n), torch.where(valid, x, 0))
+    # both kernels against their plain versions on the rows' heads
+    cut = ln.clamp(max=FGK_PLAIN_CUT)
+    head = x[:, :FGK_PLAIN_CUT].contiguous()
+    nw = n_words_for(FGK_PLAIN_CUT)
+    w, b = K.fgk_encode(head, cut, nw)
+    pw, pb = K.fgk_encode_plain(head, cut, nw)
+    assert torch.equal(b, pb) and torch.equal(w, pw)
+    assert torch.equal(K.fgk_decode(w, cut, FGK_PLAIN_CUT),
+                       K.fgk_decode_plain(w, cut, FGK_PLAIN_CUT))
 
 
 def _fgk_input(name):
