@@ -771,6 +771,32 @@ def fat_edge_batch(K, dev, errs):
         "lane_decode")
 
 
+def histogram_one_row(K, g, n: int, errs) -> None:
+    """``histogram256`` on the whole-file chunk (C = 1, its row cut into
+    slices over the card) beside ``torch.bincount`` of the valid prefix,
+    one PyTorch call of the same function. ``bincount`` reads the row's
+    maximum back to the host to size its output, so it cannot be queued
+    behind device work: its time is host-paced (the mean of a batch
+    between two events, each call waiting on its own read-back), the
+    clock of the kernel's ``host_paced_ms``, which it is held against;
+    the kernel's ``ms`` is queued device time."""
+    chunks, lens = g["chunks"], g["lens"]
+    C, L = chunks.shape
+    m = int(lens[0])
+    got = K.histogram256(chunks, lens)
+    same("histogram256.one_row", got, K.histogram256_plain(chunks, lens), errs)
+    lib = torch.bincount(chunks[0, :m], minlength=256).to(torch.int32)
+    same("histogram256.one_row_vs_bincount", got[0], lib, errs)
+    ms = cuda_ms(lambda: K.histogram256(chunks, lens), reps=20, warm=3,
+                 queued=True)
+    host_ms = cuda_ms(lambda: K.histogram256(chunks, lens), reps=20, warm=3)
+    lib_ms = cuda_ms(lambda: torch.bincount(chunks[0, :m], minlength=256),
+                     reps=20, warm=3)
+    geometry("histogram256", f"the {n} B whole-file chunk (1 x {L}, {m} B "
+             "valid)", ms, m + 4 * C + 1024 * C, 2 * m,
+             host_paced_ms=host_ms, library_ms=lib_ms)
+
+
 def global_path(K, TorchCodec, CodecConfig, x, errs):
     """The global layout's checks, counted round trips and timings.
     Returns (launch counts of its round trips, kernel 7's row values)."""
@@ -909,21 +935,14 @@ def global_path(K, TorchCodec, CodecConfig, x, errs):
     C, L = g["chunks"].shape
     repad_geometry(K, f"the 2.5 MiB whole-file chunk ({g['shape']} lanes, "
                    f"wb {g['wb']})", g["flat"], g["lw"], g["wb"])
-    for name, fn, nbytes in (
-            ("histogram256", lambda: K.histogram256(g["chunks"], g["lens"]),
-             int(g["lens"].sum()) + 4 * C + 1024 * C),
-            ("lane_pack", lambda: K.lane_pack(g["chunks"], g["lens"],
-                                              g["tables"], g["lane"]),
+    geometry("lane_pack", f"lane {g['lane']}, the 2.5 MiB whole-file chunk "
+             f"(1 x {L})", cuda_ms(lambda: K.lane_pack(
+                 g["chunks"], g["lens"], g["tables"], g["lane"]), reps=10,
+                 queued=True),
              int(g["lens"].sum()) + 1028 * C + 4 * (L // g["lane"])
-             * (K.lane_words_cap(g["lane"]) + 1))):
-        ms = cuda_ms(fn, reps=10, queued=True)
-        if name == "lane_pack":
-            geometry(name, f"lane {g['lane']}, the 2.5 MiB whole-file chunk "
-                     f"(1 x {L})", ms, nbytes, 6 * int(g["lens"].sum()))
-            continue
-        log(f"{name} at the 2.5 MiB whole-file chunk (1 x {L}, lane "
-            f"{g['lane']}): {ms:.4f} ms, bound "
-            f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} B)")
+             * (K.lane_words_cap(g["lane"]) + 1), 6 * int(g["lens"].sum()))
+    for n in (GLOBAL_SIZES[0], GLOBAL_SIZES[2]):
+        histogram_one_row(K, whole[n], n, errs)
     stage_split(K, g)
     del whole, g
     k7_row = dict(k7[GLOBAL_SIZES[2]], random_bytes_ms=k7["random bytes"],
@@ -1114,11 +1133,61 @@ def sharded_adapt_chain(K, A, codec, xd, bs, cap, errs):
     return nb, times
 
 
+WALK_STRESS_SEEDS = 32
+
+
+def walk_stress(K, dev, errs) -> None:
+    """The walk kernel's two instances on ``edge_cases.walk_edge_streams``
+    of 32 seeds, against ``edge_cases.walk_serial`` (the contract walked
+    byte by byte in Python); seed 0 also against the plain version on the
+    card. Every mismatch is printed, and any fails the run."""
+    from huffman_codec_tpu_torch.edge_cases import (walk_edge_streams,
+                                                    walk_serial)
+
+    t0 = time.perf_counter()
+    bad, n_cases, err = [], 0, 0
+    for seed in range(WALK_STRESS_SEEDS):
+        for name, (stream, offs, sizes, total, cap) in \
+                walk_edge_streams(seed).items():
+            args = (torch.from_numpy(stream).to(dev),
+                    torch.from_numpy(offs).to(dev),
+                    torch.from_numpy(sizes).to(dev), total, cap)
+            lens = K.group_tile_lens(*args)
+            lens_d, dec = K.group_tile_lens(*args, with_decoded=True)
+            want = walk_serial(stream, offs, sizes, total, cap)
+            n_cases += 1
+            for what, g, w in (("lens", lens, want[0]),
+                               ("lens (decoded instance)", lens_d, want[0]),
+                               ("decoded", dec, want[1])):
+                d = np.abs(g.cpu().numpy().astype(np.int64) - w)
+                if d.any():
+                    err = max(err, int(d.max()))
+                    bad.append((seed, name, what))
+                    log(f"walk stress: seed {seed} {name} {what}: "
+                        f"{int((d > 0).sum())} of {d.size} tiles differ, "
+                        f"first at {int(np.flatnonzero(d)[0])}")
+            if seed == 0:
+                plain = K.group_tile_lens_plain(*args, with_decoded=True)
+                same("group_tile_lens.edge", lens, plain[0], errs)
+                same("group_tile_lens.edge_decoded_lens", lens_d, plain[0],
+                     errs)
+                same("group_tile_lens.edge_decoded", dec, plain[1], errs)
+    errs["group_tile_lens.stress"] = err
+    if bad:
+        raise AssertionError(f"walk stress: {len(bad)} mismatches: {bad[:8]}")
+    per_seed = n_cases // WALK_STRESS_SEEDS
+    log(f"walk stress: {WALK_STRESS_SEEDS} seeds x {per_seed} edge "
+        "streams, both instances equal to the "
+        f"serial walk (seed 0 also to the plain version), 0 mismatches, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
     """Adaptive block RLE in both layouts: kernel checks, counted round
     trips, containers against the CPU plain path, timings. Returns (the
     launch counts of the 64 MiB sharded-adaptive round trip, the rows of
     the tile mode and of the group walk for the kernels line)."""
+    from huffman_codec_tpu_torch.edge_cases import walk_serial
     from huffman_codec_tpu_torch.models.chunked import (
         _band_winner_order, _sharded_cap)
     from huffman_codec_tpu_torch.ops import adapt as A
@@ -1198,7 +1267,41 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
             f"sizes {dms:.4f} ms), plain {plain_ms:.0f} "
             f"ms (host clock, one run), bound {bound:.6f} ms by {by}; equal "
             "to the plain version and to the encoder's tile lengths")
+        # V1Codec's walk: the same stream as one group of every tile, held
+        # to edge_cases.walk_serial (the contract walked byte by byte in
+        # Python; the plain version would take a torch step a stream byte),
+        # to the encoder's tile lengths and to the sizes
+        one = (stream[: int(total)].clone(),
+               torch.zeros(1, dtype=torch.int32, device=dev), sizes,
+               int(total), int(total))
+        got = K.group_tile_lens(*one)
+        gd = K.group_tile_lens(*one, with_decoded=True)
+        t = time.perf_counter()
+        serial = [torch.from_numpy(a).to(dev) for a in walk_serial(
+            *(a.cpu().numpy() for a in one[:3]), *one[3:])]
+        serial_ms = (time.perf_counter() - t) * 1e3
+        same("group_tile_lens.one_group", got, serial[0], errs)
+        same("group_tile_lens.one_group_decoded_lens", gd[0], serial[0],
+             errs)
+        same("group_tile_lens.one_group_decoded", gd[1], serial[1], errs)
+        same("group_tile_lens.one_group_vs_tile_lens", got, tl, errs)
+        same("group_tile_lens.one_group_decoded_vs_sizes", gd[1], sizes,
+             errs)
+        oms = cuda_ms(lambda: K.group_tile_lens(*one), reps=5, queued=True)
+        odms = cuda_ms(lambda: K.group_tile_lens(*one, with_decoded=True),
+                       reps=5, queued=True)
+        obound, oby = bound_of(int(total) + 4 + 8 * sizes.numel(),
+                               12 * int(total))
+        walk[f"one group, bs {bs}"] = dict(
+            ms=oms, decoded_ms=odms, bound_ms=obound, bound_by=oby,
+            tiles=sizes.numel())
+        log(f"group_tile_lens one group of {sizes.numel()} tiles (V1Codec's "
+            f"walk), bs {bs}, {int(total)} stream bytes: {oms:.4f} ms (with "
+            f"the decoded sizes {odms:.4f} ms), bound {obound:.6f} ms by "
+            f"{oby}; both instances equal to the serial walk ({serial_ms:.0f}"
+            " ms, host clock), the encoder's tile lengths and the sizes")
     del img
+    walk_stress(K, dev, errs)
 
     # -- sharded adaptive: counted 64 MiB round trip ---------------------------
     cfg = CodecConfig(use_adapt=True, use_diff=True, width=ADAPT_W,
@@ -1401,7 +1504,10 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
                 "launches": glaunches["group_tile_lens"],
                 "max_abs_err": max(v for k, v in errs.items()
                                    if k.startswith("group_tile_lens")),
-                **walk[8], "library_ms": None}
+                **walk[8], "library_ms": None,
+                "grouped_bs16": walk[16],
+                "one_group": {k: v for k, v in walk.items()
+                              if isinstance(k, str)}}
 
     # -- times: the sharded-adaptive stages at one 256-band step ---------------
     hor, ver, _ = A._gather_tiles(work, ADAPT_W, BAND_H, bs)
@@ -1699,7 +1805,8 @@ def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access, warp):
     runtime's v1 encoder) and, in the stress pass, their first design
     (``warp``, the library of ``fgk_warp.cu``), counted round trips,
     containers against the CPU plain path, timings. Returns (the launch counts of the sharded FGK
-    round trips, the kernels' rows)."""
+    round trips, the kernels' rows, the launch counts of V1Codec's four
+    configs)."""
     from huffman_codec_tpu_torch.edge_cases import fgk_deep_row, fgk_edge_rows
     from huffman_codec_tpu_torch.models.chunked import (
         _dense_payload, _encode_sharded_stage)
@@ -2001,7 +2108,7 @@ def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access, warp):
                                  f"symbols and {len(el)} edge rows",
          "reduced_ms": red_dec_ms, **dec_bound},
     ]
-    return launches, rows_out
+    return launches, rows_out, vl
 
 
 # the kernels of the sharded chain (1-6), which the CLI's v3 runs launch,
@@ -3317,8 +3424,10 @@ def main() -> int:
     for row in rows:
         row["launches_adaptive"] = alaunches[row["name"]]
     rows += [row_1b, row_walk]
-    flaunches, fgk_rows = fgk_path(K, TorchCodec, V1Codec, CodecConfig, x,
-                                   errs, access, warp)
+    flaunches, fgk_rows, v1_launches = fgk_path(
+        K, TorchCodec, V1Codec, CodecConfig, x, errs, access, warp)
+    # the one-group instance's launches: V1Codec's four configs on 256 KiB
+    row_walk["one_group"]["launches"] = v1_launches["group_tile_lens"]
     for row in rows:
         row["launches_fgk"] = flaunches[row["name"]]
     rows += fgk_rows

@@ -1,5 +1,5 @@
-"""Edge-case inputs for the encode and decode kernels, made with numpy
-from a seed.
+"""Edge-case inputs for the encode and decode kernels and the group walk,
+made with numpy from a seed.
 
 The CPU tests (against the JAX package), the GPU tests and
 ``chip_smoke.py`` (kernel against plain version) all draw their edge
@@ -512,3 +512,177 @@ def broken_adapt_v1_blobs() -> dict:
         15: (adapt_v1_blob(tile + bytes(range(64)) + b"ZZ"),
              "leftover data of adaptive block RLE detected"),
     }
+
+
+def _walk_tile_raw(rng, size: int) -> np.ndarray:
+    """``size`` raw bytes of a tile from a four-symbol alphabet in runs
+    of 1 to 5 (equal neighbours, and count bytes of 0 to 2, are common),
+    with a run of 258 to 262 now and then (count bytes of 255 and after)."""
+    out, n = [], 0
+    while n < size:
+        run = int(rng.integers(258, 263)) if rng.random() < 0.01 else \
+            int(rng.integers(1, 6))
+        out.append(np.full(run, rng.choice([0, 1, 2, 255]), np.uint8))
+        n += run
+    return np.concatenate(out)[:size] if out else np.zeros(0, np.uint8)
+
+
+def _walk_stream(raws) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Tiles' raw bytes -> (stream, each tile's stream length, sizes): each
+    tile MNP-5 coded from the reset state, as the adaptive encoder does."""
+    from huffman_codec_tpu_torch.pyref.rle import rle_encode
+    enc = [np.frombuffer(bytes(rle_encode(r.tobytes())), np.uint8)
+           for r in raws]
+    return (np.concatenate(enc), np.array([len(e) for e in enc], np.int64),
+            np.array([len(r) for r in raws], np.int32))
+
+
+def _walk_case(stream, tile_lens, sizes, K: int, cap: int | None = None,
+               total: int | None = None):
+    """One walk input: the tiles in groups of K (sizes 0 past the last
+    tile), each group's offset the sum of the tile lengths before it."""
+    nt = len(sizes)
+    ng = max(1, -(-nt // K))
+    offs = np.concatenate([[0], np.cumsum(tile_lens)])[: nt: K]
+    szs = np.zeros(ng * K, np.int32)
+    szs[:nt] = sizes
+    total = len(stream) if total is None else total
+    return (stream.astype(np.uint8), offs.astype(np.int32), szs, int(total),
+            int(total if cap is None else cap))
+
+
+def walk_edge_streams(seed: int) -> dict:
+    """Inputs of the group walk (``kernels.group_tile_lens``), name ->
+    (stream (n,) uint8, group_offs (ng,) int32, sizes (ng * K,) int32,
+    total, group_cap). The walk kernel stages a group's bytes in windows of
+    4096 and walks them in passes of 32 lanes x 16 bytes; the streams put
+    tile borders at and beside those borders, and reach every edge of the
+    walk's contract:
+
+    * ``grouped``: ~200 small valid tiles in groups of 16, the last group
+      part-filled (sizes 0 past the last tile), the manifest's group cap;
+      ``one_group``: the same tiles as one group, as ``V1Codec`` walks;
+    * ``borders``: tiles whose streams are 1, 15, 16, 17, 511, 512, 513,
+      4095 and 4097 bytes long, so tile borders fall on and beside lane,
+      pass and window borders, each also after a tile that ends on its
+      third equal literal (the next tile's first byte is a literal, not a
+      count byte) or on two equal literals before a tile that starts with
+      the same byte (the reset matters);
+    * ``long``: tiles of 5000 to 12000 bytes, through many windows;
+    * ``counts``: count bytes 0 and 255, and a count byte that overshoots
+      its tile (decoded > size) inside a valid-looking stream;
+    * ``random_bytes``: any bytes are a stream: random bytes walked as 8 x 8
+      tiles overshoot and end short;
+    * ``ends_inside``: the group's bytes end inside a tile (its length the
+      bytes so far, its decoded size what they produce, later tiles 0);
+    * ``leftover``: K tiles done before the bytes end, and zero-size tiles
+      past the last one, each completed by a single byte;
+    * ``cap_short``: a group cap shorter than the groups;
+    * ``unordered``: offsets that are not monotone (a negative group
+      length), past the stream's end and negative (reads clamped to
+      [0, n - 1]), and a total past the stream."""
+    rng = np.random.default_rng(seed)
+    cases = {}
+    raws = [_walk_tile_raw(rng, int(rng.integers(1, 41))) for _ in range(200)]
+    stream, tl, sizes = _walk_stream(raws)
+    cases["grouped"] = _walk_case(stream, tl, sizes, 16,
+                                  cap=16 * (40 + 40 // 3 + 4))
+    cases["one_group"] = _walk_case(stream, tl, sizes, len(sizes))
+
+    # tiles of exact stream lengths: no three equal neighbours, so the
+    # stream is the raw bytes; tails that make the border an edge
+    def plain_tile(n):
+        r = rng.integers(3, 250, n).astype(np.uint8)
+        for i in range(2, n):
+            if r[i] == r[i - 1] == r[i - 2]:
+                r[i] = r[i] + 1
+        return r
+
+    raws = []
+    for n in (16, 15, 17, 1, 511, 512, 513, 4095, 4097, 16):
+        raws.append(plain_tile(n))
+        tail = plain_tile(int(rng.integers(4, 30)))
+        tail[-3:] = 7  # ends on its third equal literal ...
+        raws += [tail, np.r_[np.uint8(7), plain_tile(12)]]  # ... then a 7
+        tail = plain_tile(int(rng.integers(4, 30)))
+        tail[-2:] = 9  # ends on two equal literals ...
+        raws += [tail, np.full(6, 9, np.uint8)]  # ... then a run of 9
+    stream, tl, sizes = _walk_stream(raws)
+    cases["borders"] = _walk_case(stream, tl, sizes, len(sizes))
+
+    raws = []
+    for n in (5000, 1, 12000, 2, 7001):
+        raws.append(_walk_tile_raw(rng, n))
+    stream, tl, sizes = _walk_stream(raws)
+    cases["long"] = _walk_case(stream, tl, sizes, 2, cap=stream.size)
+
+    raws = [np.r_[np.full(3, 5), np.uint8(6)].astype(np.uint8),  # count 0
+            np.full(258, 4, np.uint8), np.full(259, 4, np.uint8),  # 255
+            np.full(3, 8, np.uint8), np.full(5, 8, np.uint8)]
+    stream, tl, sizes = _walk_stream(raws * 3)
+    sizes[-4] -= 2  # a count byte that overshoots: decoded > size
+    cases["counts"] = _walk_case(stream, tl, sizes, len(sizes))
+
+    stream = rng.integers(0, 256, 3000).astype(np.uint8)
+    stream[rng.integers(0, 3000, 300)] = 0
+    cases["random_bytes"] = (stream, np.array([0, 700, 1800], np.int32),
+                             np.full(3 * 40, 64, np.int32), 3000, 1500)
+
+    raws = [_walk_tile_raw(rng, int(rng.integers(1, 200))) for _ in range(40)]
+    stream, tl, sizes = _walk_stream(raws)
+    cut = int(tl[:30].sum()) + int(tl[30]) // 2
+    cases["ends_inside"] = _walk_case(stream, tl, sizes, len(sizes),
+                                      total=cut)
+    lo = _walk_case(stream, tl, sizes, 16)
+    cases["leftover"] = (lo[0], lo[1][:1], lo[2][:16].copy(), lo[3], lo[4])
+    szs = np.zeros(64, np.int32)
+    szs[:20] = sizes[:20]  # then zero-size tiles: a byte each
+    cases["leftover_zero_sizes"] = (stream, np.zeros(1, np.int32), szs,
+                                    int(tl[:20].sum()) + 30,
+                                    int(tl[:20].sum()) + 30)
+    g = _walk_case(stream, tl, sizes, 8)
+    cases["cap_short"] = (g[0], g[1], g[2], g[3], 100)
+    n = stream.size
+    cases["unordered"] = (stream, np.array([0, 900, 400, n - 50, n + 70, -30],
+                                           np.int32),
+                          np.full(6 * 12, 40, np.int32), n + 300, 2000)
+    return cases
+
+
+def walk_serial(stream, group_offs, sizes, total: int, group_cap: int):
+    """The group walk's contract run group by group, one byte at a time,
+    in plain Python: (lens, decoded) as int32 arrays. The walk kernel's
+    stress pass holds it to the kernel (the plain PyTorch version, a torch
+    step per byte, is too slow for many seeds); the CPU tests hold it to
+    the plain version."""
+    stream = np.asarray(stream).tolist()
+    offs = np.asarray(group_offs).astype(np.int64).tolist()
+    sizes = np.asarray(sizes).tolist()
+    ng, n = len(offs), len(stream)
+    K = len(sizes) // ng
+    lens, dec = [0] * (ng * K), [0] * (ng * K)
+    for g in range(ng):
+        end = offs[g + 1] if g + 1 < ng else total
+        glen = min(end - offs[g], group_cap)
+        t = produced = count = nb = 0
+        match = -1
+        for pos in range(max(glen, 0)):
+            if t == K:
+                break
+            b = stream[min(max(offs[g] + pos, 0), n - 1)]
+            is_cnt = count == 3
+            produced += b if is_cnt else 1
+            nb += 1
+            if produced >= sizes[g * K + t]:
+                lens[g * K + t], dec[g * K + t] = nb, produced
+                t += 1
+                produced = nb = count = 0
+                match = -1
+            elif is_cnt:
+                count = 0
+            else:
+                count = count + 1 if match == b else 1
+                match = b
+        if t < K:
+            lens[g * K + t], dec[g * K + t] = nb, produced
+    return np.array(lens, np.int32), np.array(dec, np.int32)

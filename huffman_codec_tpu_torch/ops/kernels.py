@@ -181,7 +181,13 @@ def histogram256_plain(data, lengths):
 
 def histogram256(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """(C, 256) int32 byte counts of each (C, L) uint8 row's first
-    ``lengths[c]`` bytes, any L."""
+    ``lengths[c]`` bytes, any L.
+
+    With fewer rows than the card has SMs, each row is cut into slices
+    counted by blocks of their own, and the launch is two operations on
+    the stream: a memset of the counts, then the kernel adding each
+    slice's counts to them. A call adds one to ``launches`` either way
+    (and a CUDA graph replay of it one, as its capture recorded)."""
     if data.device.type == "cpu":
         return histogram256_plain(data, lengths)
     dev = _check_cuda("histogram256", (data, torch.uint8, 2),

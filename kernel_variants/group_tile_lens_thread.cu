@@ -1,9 +1,24 @@
-// Design variant of csrc/group_tile_lens.cu: one instance that always
-// stores each tile's decoded size beside its length (the first design of
-// the second output). Timed by time_walk_variants.py beside the package's
-// two instances: the stores cost the grouped manifest's walk, which does
-// not read them, 7-10%, so the package keeps an instance without them.
-// Same contract as the package's kernel, decoded never null.
+// Design variant of csrc/group_tile_lens.cu: the first design of the
+// group walk, one thread a group walking its
+// bytes one at a time from global memory, each tile's size a dependent
+// global load. Timed by time_walk_variants.py beside the package's warp
+// design. Same contract and the same two instances as the package's
+// kernel:
+//
+// Contract: stream (n,) u8 holds concatenated per-tile MNP-5 streams,
+// `total` bytes in all; group_offs (ng,) i32 is the offset of every K-th
+// tile's stream; sizes (ng * K,) i32 the decoded size of each tile (0 past
+// the last tile) -> lens (ng * K,) i32, the bytes of each tile's stream,
+// and decoded (ng * K,) i32, the bytes each tile's stream decodes to as
+// walked: its size, more where a count byte overshoots it, less for a tile
+// the group's bytes end inside, 0 for a tile never reached. A decoder
+// holds decoded against sizes to refuse a broken stream; decoded may be
+// null, and is then not written (an instance of its own, so the grouped
+// manifest's walk keeps the stores of the lengths alone).
+// A group is walked through the decoder FSM (match byte, count <= 3: the
+// byte after three equal ones is a count byte and expands to that many
+// repeats) for at most group_cap bytes; a tile ends where its decoded size
+// is reached, and the FSM restarts there.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -12,6 +27,7 @@ namespace {
 
 constexpr int kThreads = 32;
 
+template <bool kDecoded>
 __global__ void __launch_bounds__(kThreads)
 group_tile_lens_kernel(const uint8_t* __restrict__ stream,
                        const int* __restrict__ group_offs,
@@ -25,8 +41,11 @@ group_tile_lens_kernel(const uint8_t* __restrict__ stream,
   const int glen = min(end - off, group_cap);
   const int* sz = sizes + static_cast<size_t>(g) * K;
   int* out = lens + static_cast<size_t>(g) * K;
-  int* dec = decoded + static_cast<size_t>(g) * K;
-  for (int k = 0; k < K; ++k) out[k] = dec[k] = 0;
+  int* dec = kDecoded ? decoded + static_cast<size_t>(g) * K : nullptr;
+  for (int k = 0; k < K; ++k) {
+    out[k] = 0;
+    if (kDecoded) dec[k] = 0;
+  }
 
   int t = 0, produced = 0, match = -1, count = 0, bytes = 0;
   for (int pos = 0; pos < glen && t < K; ++pos) {
@@ -35,7 +54,7 @@ group_tile_lens_kernel(const uint8_t* __restrict__ stream,
     produced += is_cnt ? byte : 1;
     ++bytes;
     if (produced >= sz[t]) {  // tile complete: the FSM restarts
-      dec[t] = produced;
+      if (kDecoded) dec[t] = produced;
       out[t++] = bytes;
       produced = 0;
       bytes = 0;
@@ -50,7 +69,7 @@ group_tile_lens_kernel(const uint8_t* __restrict__ stream,
   }
   if (t < K) {
     out[t] = bytes;
-    dec[t] = produced;
+    if (kDecoded) dec[t] = produced;
   }
 }
 
@@ -63,8 +82,9 @@ extern "C" int group_tile_lens_launch(const void* stream,
                                       int total, int group_cap,
                                       void* cuda_stream) {
   const int blocks = (ng + kThreads - 1) / kThreads;
-  group_tile_lens_kernel<<<blocks, kThreads, 0,
-                           static_cast<cudaStream_t>(cuda_stream)>>>(
+  auto kernel = decoded ? group_tile_lens_kernel<true>
+                        : group_tile_lens_kernel<false>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
       static_cast<const uint8_t*>(stream),
       static_cast<const int*>(group_offs), static_cast<const int*>(sizes),
       static_cast<int*>(lens), static_cast<int*>(decoded), ng, K, n, total,

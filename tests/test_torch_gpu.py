@@ -17,7 +17,7 @@ from huffman_codec_tpu_torch.edge_cases import (  # noqa: E402
     ODD_CONFIGS, broken_adapt_v1_blobs, fgk_deep_row, fgk_edge_rows,
     fgk_successor_streams, lane_edge_rows, match_plain_rows,
     odd_config_input, pack_edge_rows, pack_lane_rows, rle_edge_rows,
-    rle_encode_edge_rows)
+    rle_encode_edge_rows, walk_edge_streams, walk_serial)
 from huffman_codec_tpu_torch.native import runtime  # noqa: E402
 from huffman_codec_tpu_torch.ops.fgk import n_words_for  # noqa: E402
 from huffman_codec_tpu_torch.ops.pack import chunk_bytes  # noqa: E402
@@ -750,6 +750,123 @@ def test_group_walk_decoded_sizes_match_plain(cuda, cut):
                                    with_decoded=True)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert torch.equal(got[1], sizes) == (cut == 0)
+
+
+WALK_EDGE = walk_edge_streams(0)
+
+
+def _walk_both(args, cuda):
+    """The walk kernel's two instances on ``args`` (CPU tensors and ints)
+    against the plain version run on the CPU; one launch each."""
+    dev_args = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    want = K.group_tile_lens_plain(*args, with_decoded=True)
+    K.reset_launches()
+    got = K.group_tile_lens(*dev_args)
+    got_d = K.group_tile_lens(*dev_args, with_decoded=True)
+    assert K.launch_counts()["group_tile_lens"] == 2
+    assert torch.equal(got.cpu(), want[0])
+    assert torch.equal(got_d[0].cpu(), want[0])
+    assert torch.equal(got_d[1].cpu(), want[1])
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WALK_EDGE))
+def test_group_walk_kernel_on_edge_streams(cuda, name):
+    stream, offs, sizes, total, cap = WALK_EDGE[name]
+    want = _walk_both((torch.from_numpy(stream), torch.from_numpy(offs),
+                       torch.from_numpy(sizes), total, cap), cuda)
+    ref = walk_serial(stream, offs, sizes, total, cap)
+    assert np.array_equal(want[0].numpy(), ref[0])
+    assert np.array_equal(want[1].numpy(), ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [8, 16])
+def test_group_walk_kernel_grouped_manifests(cuda, bs):
+    # a 512 x 512 image walked as the grouped manifest does: 64 tiles a
+    # group, 64 groups at block size 8 and 16 at 16
+    x = torch.from_numpy(_image(512, 512, 15)).to(cuda)
+    stream, total, _, tl = tad.adapt_encode_fixed(x, 512, 512, bs,
+                                                  with_header=False)
+    offs = (torch.cumsum(tl, 0) - tl)[:: tad.GROUP_K].to(torch.int32)
+    sizes = torch.full((tl.shape[0],), bs * bs, dtype=torch.int32)
+    cap = tad.GROUP_K * trle.rle_max_encoded_len(bs * bs)
+    want = _walk_both((stream.cpu(), offs.cpu(), sizes, int(total), cap),
+                      cuda)
+    assert torch.equal(want[0], tl.cpu().to(torch.int32))
+    assert torch.equal(want[1], sizes)
+
+
+@pytest.mark.cuda
+def test_group_walk_kernel_one_group_of_4096_tiles(cuda):
+    # V1Codec's walk: one group of every tile of a 512 x 512 image at block
+    # size 8, flat tiles (a run each) among noisy ones, and the same stream
+    # cut short inside a tile
+    rng = np.random.default_rng(16)
+    img = np.kron(rng.integers(0, 4, (64, 64)),
+                  np.ones((8, 8), np.int64)).astype(np.uint8)
+    noisy = np.kron(rng.random((64, 64)) < 0.1,
+                    np.ones((8, 8), bool)).astype(bool)
+    img[noisy] = rng.integers(0, 256, int(noisy.sum()))
+    img = img.reshape(-1)
+    stream, total, _, tl = tad.adapt_encode_fixed(
+        torch.from_numpy(img), 512, 512, 8, with_header=False)
+    stream = stream[: int(total)].clone()
+    sizes = torch.from_numpy(tad._tile_geom_arrays(512, 512, 8))
+    zero = torch.zeros(1, dtype=torch.int32)
+    for cut in (0, 37):
+        n = int(total) - cut
+        want = _walk_both((stream[:n].clone(), zero, sizes, n, n), cuda)
+        assert torch.equal(want[0], tl.to(torch.int32)) == (cut == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2, 3])
+@pytest.mark.parametrize("L", [0, 1, 15, 16, 17, 4099, 65536 + 7,
+                               (1 << 23) + 100])
+def test_histogram_few_rows_matches_plain(cuda, C, L):
+    # rows of L not a multiple of 16 start off the 16-byte lines; lengths
+    # from the whole row down to 0 and 1
+    rng = np.random.default_rng(C * 1000 + L % 997)
+    data = torch.from_numpy(rng.integers(0, 256, (C, L), dtype=np.int64)
+                            .astype(np.uint8)).to(cuda)
+    if L > 100:
+        data[:, 50:L // 2] = 7  # one bin takes most of the row
+    lens = torch.tensor([L, max(L - 1, 0), min(L, 1)][:C],
+                        dtype=torch.int32, device=cuda)
+    K.reset_launches()
+    got = K.histogram256(data, lens)
+    assert K.launch_counts()["histogram256"] == 1
+    assert torch.equal(got, K.histogram256_plain(data, lens))
+
+
+@pytest.mark.cuda
+def test_histogram_split_replayed_in_a_cuda_graph(cuda):
+    # one row, cut into slices: the memset and the kernel replay together,
+    # and a replay's counts never carry into the next
+    L = (5 << 19) + 3
+    rng = np.random.default_rng(52)
+    data = torch.zeros((1, L), dtype=torch.uint8, device=cuda)
+    lens = torch.full((1,), L, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        K.histogram256(data, lens)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    K.reset_launches()
+    with torch.cuda.graph(graph):
+        out = K.histogram256(data, lens)
+    assert K.launch_counts()["histogram256"] == 1
+    for n in (L, 12345, 0):
+        data.copy_(torch.from_numpy(rng.integers(0, 256, (1, L),
+                                                 dtype=np.int64)
+                                    .astype(np.uint8)))
+        lens.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, K.histogram256_plain(data, lens))
 
 
 @pytest.mark.cuda
