@@ -106,21 +106,35 @@ whose encode outputs are held to the plain versions the same way.
 
 The step pipeline of the main path (64 MiB sharded, diff on and off):
 ``encode`` uploads every step from pinned memory on a copy stream and
-dispatches it (a CUDA graph replay from the second step of a geometry
-on) before it fetches any, then fetches in two waves, the manifests and
-the used payload prefixes; ``decode`` stages every step before it runs
-any, replays one graph a step and fetches the bytes once. The phase
-holds its containers to the eager single-step path (each step fetched
-before the next is uploaded) and, on the 16 MiB + 12,345 B prefix, to the
-CPU plain path; every output of a replayed encode or decode step to the
-same step run launch by launch; runs the dispatch halves of both under
+dispatches it (a CUDA graph replay; the first step of a geometry runs
+eagerly and captures the graph) before it fetches any, then fetches in
+two waves, the manifests and the used payload prefixes; ``decode`` stages
+every step before it runs any, runs each launch by launch into its slice
+of one result and fetches the bytes once. The phase holds its containers
+to the eager single-step path (each step fetched before the next is
+uploaded) and, on the 16 MiB + 12,345 B prefix, to the CPU plain path;
+every output of a replayed encode step to the same step run launch by
+launch, and each decode step written in place to the step run alone;
+runs the dispatch halves of both under
 ``torch.cuda.set_sync_debug_mode("error")``; checks that the launch counts
 (a replay adds what its capture recorded) equal an eager round trip's;
 prints the stage split of the end-to-end encode and decode (host staging,
 H2D, device, D2H, payload bytes, crc32, container; parse, bytes; device
-stages from CUDA events), the device encode and decode with graphs beside the eager
-launches (queued and host-paced), and the traced idle share of a round
-trip.
+stages from CUDA events), the device encode with graphs beside the eager
+launches and the device decode (queued and host-paced), and the traced
+idle share of a round trip.
+
+A long-lived codec (the main path's config, diff off and on, one codec
+each for the whole phase) round-trips two passes of 16 seeded inputs of
+64 KiB to 24 MiB (a chunk count in every power-of-two class below a step
+and some above, partial last chunks, gradients of four noise amplitudes
+with a block of random bytes), each input twice; it prints the device
+memory and the graph count after each input and the walls by size class,
+and fails if a codec keeps more CUDA graphs than
+``models.chunked.step_graph_bound`` allows, if the device memory the
+process holds grows by more than 64 MiB over the second pass, if a round
+trip is not exact, or if three of the containers differ from the CPU
+plain path's.
 
 Kernels 1 and 6 against the host C++ runtime (``native/hctpu.cpp``, an
 oracle written apart from the plain versions), on the 64 MiB main input's
@@ -190,16 +204,15 @@ def log(*a):
     print(*a, flush=True)
 
 
-def gradient_input(n: int, seed: int) -> np.ndarray:
-    """Smooth 512-wide 8-bit gradients with noise, like the repo's
-    512 x 512 grayscale corpus, made in bulk from a seed."""
+def gradient_input(n: int, seed: int, noise: int = 2) -> np.ndarray:
+    """Smooth 512-wide 8-bit gradients with noise of +-``noise``, like the
+    repo's 512 x 512 grayscale corpus, made in bulk from a seed."""
     rng = np.random.default_rng(seed)
     i = np.arange(n, dtype=np.int64)
     row, col = (i // 512) % 512, i % 512
     img = (i // (512 * 512)) * 37
     base = (row * 3 + col * 2) // 5 + img
-    noise = rng.integers(-2, 3, n)
-    return ((base + noise) & 255).astype(np.uint8)
+    return ((base + rng.integers(-noise, noise + 1, n)) & 255).astype(np.uint8)
 
 
 @functools.lru_cache(maxsize=1)
@@ -2781,7 +2794,7 @@ def eager_round_trip_counts(K, codec, data: bytes, blob: bytes) -> dict:
         raise AssertionError("eager encode differs from the pipeline's")
     hdr, staged = codec.stage_decode_steps(blob)
     for st in staged:
-        codec._decode_step_eager(hdr, st)
+        codec._decode_step(hdr, st)
     torch.cuda.synchronize()
     return K.launch_counts()
 
@@ -2814,12 +2827,14 @@ def pipeline_split(codec, data: bytes, blob: bytes) -> dict:
 def pipeline_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict):
     """The step pipeline of the main path (64 MiB sharded, diff on and
     off): containers against the eager single-step path and the CPU plain
-    path, replayed graph steps against eager steps for every output, the
-    dispatch halves under sync debug mode "error", launch counts with and
-    without graphs, the stage split of the end-to-end encode and decode,
-    the device encode and decode with graphs beside the eager figures, and
-    the traced idle share of a round trip. Returns the counted launches of
-    the pipelined round trips."""
+    path, replayed encode graph steps against eager steps for every output
+    and the decode's steps written into their slices of its result against
+    steps run alone, the dispatch halves under sync debug mode "error",
+    launch counts with and without graphs, the stage split of the
+    end-to-end encode and decode, the device encode with graphs beside the
+    eager figures and the device decode, and the traced idle share of a
+    round trip. Returns the counted launches of the pipelined round
+    trips."""
     from huffman_codec_tpu_torch.models.chunked import _encode_step
 
     data = x.tobytes()
@@ -2829,8 +2844,8 @@ def pipeline_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict):
                            layout="sharded", step_chunks=STEP)
             for d in (False, True)}
 
-    # -- counted: fresh codecs, so the first step warms and the second
-    #    captures, as a first call does
+    # -- counted: fresh codecs, so the first step warms and captures, as a
+    #    first call does
     K.reset_launches()
     codecs, blobs = {}, {}
     for d, cfg in cfgs.items():
@@ -2872,7 +2887,8 @@ def pipeline_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict):
     log(f"{len(tail)} B prefix, diff on and off: pipeline == eager single "
         "step == CPU plain path; round trips exact")
 
-    # -- replayed steps against eager steps, every output
+    # -- replayed encode steps against eager steps, every output; the
+    #    decode's steps in their slices of its result against steps alone
     for d, codec in codecs.items():
         for k in range(n // (STEP * CS)):
             base = codec._upload_step(arr, k * STEP, (k + 1) * STEP)
@@ -2881,12 +2897,11 @@ def pipeline_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict):
             for i, (g, w) in enumerate(zip(got, want)):
                 same(f"pipeline.encode_step.{i}", g, w, errs)
         hdr, staged = codec.stage_decode_steps(blobs[d])
-        for st in staged:
-            same("pipeline.decode_step",
-                 codec._decode_step(hdr, st, STEP).clone(),
-                 codec._decode_step_eager(hdr, st), errs)
-    log("graph-replayed encode and decode steps == eager steps, every "
-        "output, every step, diff on and off")
+        for got, st in zip(codec.run_decode_steps(hdr, staged), staged):
+            same("pipeline.decode_step", got, codec._decode_step(hdr, st),
+                 errs)
+    log("graph-replayed encode steps == eager steps, every output, every "
+        "step; the decode's steps in place == steps alone; diff on and off")
 
     # -- the dispatch halves under sync debug mode "error"
     for d, codec in codecs.items():
@@ -2907,7 +2922,7 @@ def pipeline_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict):
     log('dispatch halves of encode and decode: no synchronisation under '
         'torch.cuda.set_sync_debug_mode("error")')
 
-    # -- device encode and decode, inputs resident: graphs against eager
+    # -- device encode (graphs against eager) and decode, inputs resident
     for d, codec in codecs.items():
         bases = [codec._upload_step(arr, k * STEP, (k + 1) * STEP)
                  for k in range(n // (STEP * CS))]
@@ -2919,15 +2934,17 @@ def pipeline_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict):
             "encode_eager": lambda: [_encode_step(b, STEP, CS, LANE, d,
                                                   "canonical")
                                      for b in bases],
-            "decode_graph": lambda: codec.run_decode_steps(hdr, staged),
-            "decode_eager": lambda: [codec._decode_step_eager(hdr, st)
-                                     for st in staged],
+            "decode": lambda: codec.run_decode_steps(hdr, staged),
+            "decode_steps_alone": lambda: [codec._decode_step(hdr, st)
+                                           for st in staged],
         }
         times = {k: {"queued_ms": cuda_ms(f, reps=10, warm=2, queued=True),
                      "host_paced_ms": cuda_ms(f, reps=10, warm=2)}
                  for k, f in fns.items()}
-        log(f"pipeline device times, 64 MiB diff={d} (ms; graph = replays "
-            "+ the clones of their outputs):", json.dumps(times))
+        log(f"pipeline device times, 64 MiB diff={d} (ms; encode_graph = "
+            "replays + the clones of their outputs; decode = the steps "
+            "written into one result, decode_steps_alone = each into a "
+            "tensor of its own):", json.dumps(times))
         del bases, staged
 
     # -- the stage split of the end-to-end encode and decode
@@ -2961,6 +2978,153 @@ def pipeline_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict):
     del codecs
     torch.cuda.empty_cache()
     return launches
+
+
+# -- a long-lived codec: its graphs and device memory over varied inputs -------
+
+LONG_LIVED_SEEDS = (1401, 1402)  # the first pass's inputs, the second's
+LONG_LIVED_NOISE = (0, 2, 8, 32)  # the gradient's noise amplitudes
+LONG_LIVED_MAX_CHUNKS = 384  # 24 MiB: the largest input, two steps
+LONG_LIVED_SLACK = 64 << 20  # device bytes the second pass may add
+
+
+def long_lived_inputs(seed: int) -> list:
+    """One pass of the long-lived phase, made from ``seed``: 16 (input,
+    noise) pairs of 64 KiB to 24 MiB in a shuffled order. Chunk counts:
+    one in each power-of-two class below a step (1, 2, 3-4, ...,
+    129-255), two above a step (257-384) and five from 1-384; every input
+    of more than one chunk ends in a partial chunk. Contents:
+    ``gradient_input`` at a noise amplitude drawn from LONG_LIVED_NOISE
+    with one block of random bytes at a random place, so that the
+    containers' lane stride (``wl_bucket``) and code-length bucket vary
+    with the data."""
+    rng = np.random.default_rng(seed)
+    counts = [1] + [int(rng.integers((1 << (k - 1)) + 1,
+                                     min(1 << k, STEP - 1) + 1))
+                    for k in range(1, STEP.bit_length())]
+    counts += rng.integers(STEP + 1, LONG_LIVED_MAX_CHUNKS + 1, 2).tolist()
+    counts += rng.integers(1, LONG_LIVED_MAX_CHUNKS + 1, 5).tolist()
+    inputs = []
+    for i in rng.permutation(len(counts)):
+        c = counts[i]
+        n = CS if c == 1 else (c - 1) * CS + int(rng.integers(1, CS))
+        noise = int(rng.choice(LONG_LIVED_NOISE))
+        x = gradient_input(n, int(rng.integers(1 << 31)), noise)
+        m = int(rng.integers(1, min(n // 4, 1 << 20) + 1))
+        at = int(rng.integers(0, n - m + 1))
+        x[at: at + m] = rng.integers(0, 256, m, dtype=np.uint8)
+        inputs.append((x.tobytes(), noise))
+    return inputs
+
+
+def held_bytes() -> int:
+    """``memory_reserved()`` once the caching allocator has released its
+    free blocks: the device bytes of live tensors and of the memory pools
+    of live CUDA graphs, whatever a capture (which empties the cache) or
+    the last input left cached."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def size_class(n_chunks: int) -> str:
+    return next(f"{lo}-{hi} chunks" for lo, hi in
+                ((1, 16), (17, 128), (129, STEP - 1),
+                 (STEP, LONG_LIVED_MAX_CHUNKS)) if n_chunks <= hi)
+
+
+def long_lived_path(TorchCodec, CodecConfig, bound: int) -> None:
+    """Two codecs of the main path's config (diff off and on), each alive
+    for the whole phase, round-trip two passes of ``long_lived_inputs``
+    (seeds LONG_LIVED_SEEDS), every input twice: the first trip meets the
+    input's geometry, the second costs what a repeat of the request
+    costs. After each input it prints ``memory_reserved()``, the bytes the
+    process holds above the phase's start (``held_bytes``), each codec's
+    graph count and the graphs the input added; after each pass, the
+    encode and decode walls of both trips by size class. It fails if a
+    round trip is not exact, if the containers of the first pass's
+    smallest input, of one below a step and of one above a step differ
+    from the CPU plain path's, if a codec ever keeps more than ``bound``
+    graphs, or if the process holds more than LONG_LIVED_SLACK bytes more
+    after the second pass than after the first; every reading is printed
+    before it fails on a bound."""
+    cfgs = {d: CodecConfig(use_diff=d, chunk_size=CS, lane=LANE,
+                           layout="sharded", step_chunks=STEP)
+            for d in (False, True)}
+    t_phase = time.perf_counter()
+    start = held_bytes()
+    codecs = {d: TorchCodec(cfg) for d, cfg in cfgs.items()}
+    faults, held, most = [], [], 0
+    for p, seed in enumerate(LONG_LIVED_SEEDS):
+        inputs = long_lived_inputs(seed)
+        chunks = [-(-len(x) // CS) for x, _ in inputs]
+        cpu = set()
+        if p == 0:
+            by_size = sorted(range(len(inputs)), key=lambda i: chunks[i])
+            cpu = {by_size[0],
+                   next(i for i in by_size if 1 < chunks[i] < STEP
+                        and chunks[i] & (chunks[i] - 1)),
+                   next(i for i in by_size if chunks[i] > STEP)}
+        walls: dict = {}
+        for i, (data, noise) in enumerate(inputs):
+            row = {"pass": p + 1, "input": i, "bytes": len(data),
+                   "chunks": chunks[i], "noise": noise}
+            for d, codec in codecs.items():
+                keys = set(codec._graphs)
+                for trip in ("first", "repeat"):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    blob = codec.encode(data)
+                    t_enc = time.perf_counter() - t
+                    t = time.perf_counter()
+                    back = codec.decode(blob)
+                    t_dec = time.perf_counter() - t
+                    if back != data:
+                        raise AssertionError(
+                            f"long-lived round trip failed (pass {p + 1}, "
+                            f"input {i}, diff={d}, {trip} trip)")
+                    walls.setdefault(f"{size_class(chunks[i])} diff={d} "
+                                     f"{trip}", []).append((t_enc, t_dec))
+                if i in cpu and TorchCodec(cfgs[d], device="cpu").encode(
+                        data) != blob:
+                    raise AssertionError(
+                        f"long-lived: container of {len(data)} B (diff={d}) "
+                        "differs from the CPU plain path's")
+                hdr = codec._parse(blob)
+                most = max(most, len(codec._graphs))
+                if len(codec._graphs) > bound:
+                    faults.append(f"{len(codec._graphs)} graphs (diff={d}, "
+                                  f"pass {p + 1}, input {i}) > {bound}")
+                row[f"diff={d}"] = {
+                    "container": len(blob), "wl_bucket": hdr["wl_bucket"],
+                    "max_len_bucket": hdr["max_len_bucket"],
+                    "graphs": len(codec._graphs),
+                    "added": [str(k) for k in codec._graphs if k not in keys]}
+            row["reserved"] = torch.cuda.memory_reserved()
+            row["held"] = held_bytes() - start
+            log("long-lived:", json.dumps(row))
+        held.append(held_bytes() - start)
+        log(f"long-lived pass {p + 1} walls (s; median encode, decode; "
+            "inputs):", json.dumps({
+                k: [float(np.median([w[0] for w in v])),
+                    float(np.median([w[1] for w in v])), len(v)]
+                for k, v in sorted(walls.items())}))
+        if p == 0:
+            log("long-lived: CPU plain path == the card's containers of "
+                f"{[len(inputs[i][0]) for i in sorted(cpu)]} B, diff off "
+                "and on")
+    growth = held[1] - held[0]
+    log(f"long-lived: held above the start {held[0]} B after pass 1, "
+        f"{held[1]} B after pass 2 (growth {growth} B); graphs at most "
+        f"{most} a codec (bound {bound}); every round trip exact; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if growth > LONG_LIVED_SLACK:
+        faults.append(f"held memory grew {growth} B over the second pass "
+                      f"(> {LONG_LIVED_SLACK})")
+    del codecs
+    torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError("long-lived codec: " + "; ".join(faults))
 
 
 ORACLE_TAIL = 12345  # bytes past 16 MiB of the v2 check's input
@@ -3131,7 +3295,7 @@ def main() -> int:
         return 1
     from huffman_codec_tpu_torch import CodecConfig, TorchCodec, V1Codec
     from huffman_codec_tpu_torch.models.chunked import (
-        _encode_sharded_stage, _strip_payload)
+        _encode_sharded_stage, _strip_payload, step_graph_bound)
     from huffman_codec_tpu_torch.native import runtime as native_runtime
     from huffman_codec_tpu_torch.ops import _build
     from huffman_codec_tpu_torch.ops import kernels as K
@@ -3392,6 +3556,9 @@ def main() -> int:
     plaunches = pipeline_path(K, TorchCodec, CodecConfig, x, errs)
     for row in rows:
         row["launches_pipeline"] = plaunches[row["name"]]
+
+    # -- a long-lived codec over varied inputs: graphs and memory bounded --
+    long_lived_path(TorchCodec, CodecConfig, step_graph_bound(STEP))
 
     # -- kernels 1 and 6 against the host C++ runtime ------------------------
     native_oracle_path(K, x, errs, card)

@@ -27,8 +27,9 @@ words to a fixed lane stride (kernel), canonical lane decode (kernel),
 MNP-5 decode with the diff revert (kernel: it finds the count bytes
 itself), then the crc32 check. Both run as the JAX package's step
 pipeline (``models/pipeline.py``): every step uploaded and dispatched
-before any is fetched, fetches in waves, on the card each canonical step
-one CUDA graph replay.
+before any is fetched, fetches in waves; on the card each canonical
+encode step is one CUDA graph replay (``encode_step_chunks`` bounds
+their geometries), and each decode step runs launch by launch.
 
 Global encode: diff and MNP-5 RLE over the whole input as one stream
 (torch ops; runs cross chunk borders), the stream cut into chunks, the
@@ -244,6 +245,29 @@ def _bucket(used: int, size: int) -> int:
     return min(b, size)
 
 
+def encode_step_chunks(n_chunks: int, step_chunks: int | None) -> int:
+    """Chunks in each encode step of an input of ``n_chunks`` (>= 1)
+    chunks: ``step_chunks`` for an input of a step or more (the last step
+    zero-padded), and a shorter input's count rounded up to a power of two,
+    at most ``step_chunks``; the chunks past the input are zero-padded and
+    encode nothing, and the container is cut at ``n_chunks``. So a codec
+    meets at most ``step_graph_bound(step_chunks)`` step geometries,
+    whatever the sizes of its inputs. ``step_chunks`` None (or 0): one
+    step of the input's own count."""
+    if not step_chunks:
+        return n_chunks
+    return min(step_chunks, 1 << (n_chunks - 1).bit_length())
+
+
+def step_graph_bound(step_chunks: int | None) -> int:
+    """The most CUDA graphs a ``TorchCodec`` keeps: one per encode step
+    geometry of ``encode_step_chunks``, the powers of two below
+    ``step_chunks`` and ``step_chunks`` itself (9 at 256); 0 with
+    ``step_chunks`` None, where every input is one step of its own count,
+    run eagerly."""
+    return (step_chunks - 1).bit_length() + 1 if step_chunks else 0
+
+
 def _entropy_encode(chunks: torch.Tensor, lens: torch.Tensor, entropy: str,
                     lane: int, n_words: int | None = None):
     """Chunk rows (C, L) uint8 -> (a, meta, tables) on the device:
@@ -327,20 +351,6 @@ def _encode_step(base: torch.Tensor, S: int, chunk_size: int, lane: int,
     if entropy == "canonical":
         a = _strip_payload(a, meta)
     return a, meta, tables, rl, car
-
-
-def _decode_canonical_step(flat, lw, tables, rl, car, *, wb: int, lane: int,
-                           cap: int, max_len: int, chunk_size: int,
-                           use_diff: bool):
-    """One canonical sharded decode step: re-pad the dense words to the
-    lane stride ``wb`` (kernel), decode the lanes (kernel), expand the RLE
-    with the diff revert (kernel); the JAX package's
-    ``_decode_step_fused``. Returns ((S * chunk_size,) uint8,)."""
-    words = kernels.repad_words(flat, lw, wb)
-    chunks_rle = canonical_decode_batch(words, tables, lw, rl, lane=lane,
-                                        out_len=cap, max_len=max_len)
-    return (kernels.rle_expand(chunks_rle, rl, car, chunk_size,
-                               use_diff).view(-1),)
 
 
 def _chunkify(stream: torch.Tensor, total: torch.Tensor, chunk_size: int,
@@ -481,7 +491,17 @@ class TorchCodec:
 
     ``config=None`` means ``CodecConfig()``, the global layout.
     ``device=None`` means ``"cuda"``, and raises when no GPU is present;
-    ``device="cpu"`` runs every kernel's plain PyTorch version instead."""
+    ``device="cpu"`` runs every kernel's plain PyTorch version instead.
+
+    On the card, each canonical encode step of the sharded stream path is
+    a CUDA graph replay: one graph per step geometry, captured the first
+    time the geometry is met and kept in ``_graphs`` for the codec's life
+    with its memory pool. Step geometries come from ``encode_step_chunks``,
+    so a codec keeps at most ``step_graph_bound(config.step_chunks)``
+    graphs (9 at ``step_chunks`` 256, none with ``step_chunks`` None)
+    whatever sizes and data it sees. Everything else runs launch by
+    launch: the decode steps, FGK entropy, the other layouts and
+    adaptive mode."""
 
     # the v1 race runs only on small inputs (the v1 FGK chain is serial
     # per symbol) whose v3 container is small enough for its fixed costs
@@ -516,8 +536,9 @@ class TorchCodec:
             raise RuntimeError("no CUDA device; pass device='cpu' to run "
                                "the plain PyTorch versions")
         self._xfer = Transfers(self.device)
-        # one CUDA graph per step geometry, as jax.jit keeps one program
-        self._graphs: dict = {}
+        # encode step count -> its CUDA graph, as jax.jit keeps one program
+        # per shape; at most step_graph_bound(step_chunks) of them
+        self._graphs: dict[int, StepGraph] = {}
 
     @property
     def timer(self):
@@ -572,33 +593,39 @@ class TorchCodec:
         return base
 
     def _run_encode_step(self, base: torch.Tensor, S: int):
-        """``_encode_step`` of an uploaded step of S chunks, without
-        synchronising. Canonical entropy on CUDA replays the step's CUDA
-        graph (one per (S, chunk_size, lane, use_diff)) and clones its
-        outputs, since every step is dispatched before any is fetched;
-        FGK (kernel-bound, one launch) and the CPU run eagerly."""
+        """``_encode_step`` of an uploaded step of S chunks. Canonical
+        entropy on CUDA with ``step_chunks`` set runs the CUDA graph of
+        step count S (``StepGraph``: the first step of a count runs
+        eagerly and captures the graph, which synchronises once; later
+        ones replay without synchronising) and clones its outputs, since
+        every step is dispatched before any is fetched; S comes from
+        ``encode_step_chunks``, so the graphs are at most
+        ``step_graph_bound(step_chunks)``. FGK (kernel-bound, one launch),
+        ``step_chunks`` None (every input a step of its own count) and the
+        CPU run eagerly, without synchronising."""
         cfg = self.config
         step = functools.partial(
             _encode_step, S=S, chunk_size=cfg.chunk_size, lane=cfg.lane,
             use_diff=cfg.use_diff, entropy=cfg.entropy)
-        if cfg.entropy != "canonical" or not self._xfer.cuda:
+        if (cfg.entropy != "canonical" or not cfg.step_chunks
+                or not self._xfer.cuda):
             return step(base)
-        key = ("encode", S, cfg.chunk_size, cfg.lane, cfg.use_diff)
-        graph = self._graphs.get(key)
+        graph = self._graphs.get(S)
         if graph is None:
-            graph = self._graphs[key] = StepGraph(step,
-                                                  [torch.empty_like(base)])
+            graph = self._graphs[S] = StepGraph(step,
+                                                [torch.empty_like(base)])
         return tuple(o.clone() for o in graph(base))
 
     def dispatch_sharded(self, data: bytes) -> list:
-        """The dispatch half of the sharded stream encode: every step
-        staged, uploaded and run (``_run_encode_step``) before any is
-        fetched; nothing here waits for the device. Returns each step's
+        """The dispatch half of the sharded stream encode: every step of
+        ``encode_step_chunks`` chunks staged, uploaded and run
+        (``_run_encode_step``) before any is fetched; nothing here waits
+        for the device once the steps' graphs exist. Returns each step's
         outputs on the device, for ``fetch_sharded``."""
         cfg = self.config
         arr = np.frombuffer(data, np.uint8)
         n_chunks = _cdiv(len(arr), cfg.chunk_size)
-        S = min(cfg.step_chunks or n_chunks, n_chunks)
+        S = encode_step_chunks(n_chunks, cfg.step_chunks)
         outs = []
         for k in range(_cdiv(n_chunks, S)):
             base = self._upload_step(arr, k * S, (k + 1) * S)
@@ -1013,59 +1040,36 @@ class TorchCodec:
                   for k in range(_cdiv(n_chunks, S))] if n_chunks else []
         return hdr, staged
 
-    def _decode_step_eager(self, hdr: dict, st: dict) -> torch.Tensor:
-        """A staged step's decode, launch by launch: (S * chunk_size,)
-        uint8 on the device."""
+    def _decode_step(self, hdr: dict, st: dict,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+        """A staged step's decode, launch by launch and without
+        synchronising: re-pad and lane decode (canonical) or the FGK
+        decode, then ``rle_expand``, which writes its (S, chunk_size) rows
+        into ``out`` when given. Returns the (S * chunk_size,) uint8 bytes
+        on the device."""
         self._xfer.wait(st["ready"])
         cs = hdr["chunk_size"]
         cap = _sharded_cap(cs, _entropy_name(hdr), hdr["lane"])
         chunks_rle = self._entropy_decode(hdr, st, st["rl"], cap)
         return kernels.rle_expand(chunks_rle, st["rl"], st["car"], cs,
-                                  bool(hdr["flags"] & FLAG_DIFF)).view(-1)
-
-    def _decode_step(self, hdr: dict, st: dict, S: int) -> torch.Tensor:
-        """A staged step of S chunks -> (S * chunk_size,) uint8 on the
-        device, without synchronising. A canonical step on CUDA replays
-        the decode graph of its geometry, keyed by (S, chunk_size, lane,
-        wl_bucket, max_len_bucket, use_diff), whose dense-word input is a
-        static buffer at the step's capacity (S * lanes * wl_bucket
-        words); the result is the graph's output, overwritten by the next
-        replay. FGK (kernel-bound) and the CPU run eagerly."""
-        if hdr["entropy"] == ENTROPY_FGK or not self._xfer.cuda:
-            return self._decode_step_eager(hdr, st)
-        self._xfer.wait(st["ready"])
-        cs, lane = hdr["chunk_size"], hdr["lane"]
-        wb, ml = hdr["wl_bucket"], hdr["max_len_bucket"]
-        use_diff = bool(hdr["flags"] & FLAG_DIFF)
-        key = ("decode", S, cs, lane, wb, ml, use_diff)
-        graph = self._graphs.get(key)
-        if graph is None:
-            cap = _sharded_cap(cs, "canonical", lane)
-            nl, dev = cap // lane, self.device
-            statics = [
-                torch.empty(S * nl * wb, dtype=torch.int32, device=dev),
-                torch.empty((S, nl), dtype=torch.int32, device=dev),
-                torch.empty((S, 256), dtype=torch.uint8, device=dev),
-                torch.empty(S, dtype=torch.int32, device=dev),
-                torch.empty(S, dtype=torch.uint8, device=dev)]
-            graph = self._graphs[key] = StepGraph(functools.partial(
-                _decode_canonical_step, wb=wb, lane=lane, cap=cap,
-                max_len=ml, chunk_size=cs, use_diff=use_diff), statics)
-        return graph(st["flat"], st["lw"], st["tables"], st["rl"],
-                     st["car"])[0]
+                                  bool(hdr["flags"] & FLAG_DIFF),
+                                  out=out).view(-1)
 
     def _run_decode(self, hdr: dict, staged: list) -> torch.Tensor:
         """Every staged step decoded into one (steps * S * chunk_size,)
-        uint8 device tensor, without synchronising."""
+        uint8 device tensor, without synchronising. Each step runs
+        launch by launch (``_decode_step``; no CUDA graph, whose key would
+        follow the container's data: its lane stride and code-length
+        bucket) and writes its rows straight into its slice of the
+        result."""
         S = staged[0]["rl"].shape[0] if staged else 0
-        step = S * hdr["chunk_size"]
-        out = torch.empty(len(staged) * step, dtype=torch.uint8,
+        cs = hdr["chunk_size"]
+        out = torch.empty((len(staged) * S, cs), dtype=torch.uint8,
                           device=self.device)
         for k, st in enumerate(staged):
             with self._xfer.device_stage("device"):
-                out[k * step:(k + 1) * step].copy_(
-                    self._decode_step(hdr, st, S))
-        return out
+                self._decode_step(hdr, st, out[k * S:(k + 1) * S])
+        return out.view(-1)
 
     def run_decode_steps(self, hdr: dict, staged: list):
         """Run the decode compute of staged steps; returns each step's
@@ -1156,9 +1160,9 @@ class TorchCodec:
         c0, c1 = start // cs, (start + length - 1) // cs + 1
         if hdr["flags"] & FLAG_ADAPT:
             flat = self._decode_adapt_bands(blob, hdr, c0, c1).cpu().numpy()
-        else:  # one-off shape: no graph
+        else:
             step = self._stage_step(blob, hdr, c0, c1, c1 - c0)
-            flat = self._decode_step_eager(hdr, step).cpu().numpy()
+            flat = self._decode_step(hdr, step).cpu().numpy()
         lo = start - c0 * cs
         return flat[lo: lo + length].tobytes()
 

@@ -15,13 +15,16 @@ no streams, no events.
 
 ``StepGraph`` runs one device step as one CUDA graph replay, where JAX
 runs a jitted program. Its first call runs the step eagerly (the warm-up:
-the kernels are built with nvcc there, and its launches are real); the
-second captures it, so a one-step input never pays for a capture; from
-then on a call refills the static inputs and replays. A replay
-does not pass through the kernel wrappers, so the graph adds the launches
-its capture recorded to the wrappers' counts each time, and the capture,
-which launches nothing, takes them back. A capture that fails raises:
-nothing falls back to eager launches.
+the kernels are built with nvcc there, and its launches are real) and
+then captures it, so the step's graph exists once its geometry has been
+met; from then on a call refills the static inputs and replays. A graph
+keeps a memory pool of its own for as long as it lives, so a caller keeps
+graphs only of a bounded set of geometries (``TorchCodec``: the encode
+step counts of ``step_graph_bound``). A replay does not pass through the
+kernel wrappers, so the graph adds the launches its capture recorded to
+the wrappers' counts each time, and the capture, which launches nothing,
+takes them back. A capture that fails raises: nothing falls back to eager
+launches.
 """
 
 from __future__ import annotations
@@ -152,29 +155,27 @@ class StepGraph:
     """``fn(*statics)`` -> a tuple of tensors, run as one CUDA graph.
 
     ``statics`` are the graph's input tensors; a call copies each input
-    into the prefix of its static (so an input may be shorter than its
-    static: the rest keeps what it held and must be unread by ``fn``).
-    The returned tensors are the graph's own outputs, overwritten by the
-    next call: copy what is kept. Shapes and the host ints ``fn`` bakes
-    into its launches are fixed by the statics, so a caller keys its
-    graphs by the geometry that fixes them."""
+    (of its static's shape) into it. The first call returns the eager
+    run's outputs, every later call the graph's own outputs, overwritten
+    by the next call: copy what is kept. Shapes and the host ints ``fn``
+    bakes into its launches are fixed by the statics, so a caller keys its
+    graphs by the geometry that fixes them. The first call synchronises
+    the device (the capture does)."""
 
     def __init__(self, fn, statics: list[torch.Tensor]):
         self.fn = fn
         self.statics = statics
-        self.warm = False
         self.graph = None
         self.outs = None
         self.launches: dict[str, int] = {}
 
     def __call__(self, *inputs):
         for s, x in zip(self.statics, inputs):
-            s.view(-1)[: x.numel()].copy_(x.reshape(-1))
-        if not self.warm:
-            self.warm = True
-            return self.fn(*self.statics)  # counted: its launches are real
+            s.copy_(x)
         if self.graph is None:
+            outs = self.fn(*self.statics)  # counted: its launches are real
             self._capture()
+            return outs
         self.graph.replay()
         kernels.add_launches(self.launches)
         return self.outs

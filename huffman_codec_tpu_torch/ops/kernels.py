@@ -495,18 +495,28 @@ def rle_expand_plain(streams, lengths, carries, out_len: int,
 
 
 def rle_expand(streams: torch.Tensor, lengths: torch.Tensor,
-               carries: torch.Tensor, out_len: int,
-               use_diff: bool) -> torch.Tensor:
+               carries: torch.Tensor, out_len: int, use_diff: bool,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """MNP-5 decode of (C, n) uint8 streams, ``lengths[c]`` valid bytes
     each: the count bytes found by the decoder FSM (what
     ops/rle.rle_classify computes), each expanded to its run, with the
     per-chunk diff revert seeded by ``carries`` when ``use_diff``. Returns
-    (C, out_len) uint8, zero past each chunk's decoded length. On CUDA the
+    (C, out_len) uint8, zero past each chunk's decoded length: ``out``
+    when given (a contiguous (C, out_len) uint8 tensor on the streams'
+    device, which the kernel writes directly when out_len is a multiple of
+    16 and ``out`` is 16-byte aligned), else a new tensor. On CUDA the
     kernel writes rows of out_len rounded up to 16 bytes (its 16-byte
     stores), which are cut back to out_len: the output is a prefix of the
     decoded row either way. Rows and output index with 32-bit ints."""
+    if out is not None and (out.shape != (streams.shape[0], out_len)
+                            or out.dtype != torch.uint8
+                            or out.device != streams.device
+                            or not out.is_contiguous()):
+        raise ValueError("rle_expand: out must be a contiguous (C, out_len) "
+                         "uint8 tensor on the streams' device")
     if streams.device.type == "cpu":
-        return rle_expand_plain(streams, lengths, carries, out_len, use_diff)
+        res = rle_expand_plain(streams, lengths, carries, out_len, use_diff)
+        return res if out is None else out.copy_(res)
     dev = _check_cuda("rle_expand", (streams, torch.uint8, 2),
                       (lengths, torch.int32, 1), (carries, torch.uint8, 1))
     C, n = streams.shape
@@ -514,13 +524,18 @@ def rle_expand(streams: torch.Tensor, lengths: torch.Tensor,
         raise ValueError("rle_expand: rows and output hold fewer than "
                          f"{RLE_EXPAND_MAX} bytes (32-bit offsets)")
     width = -(-out_len // 16) * 16
-    out = torch.empty((C, width), dtype=torch.uint8, device=dev)
+    rows = (out if out is not None and width == out_len
+            and out.data_ptr() % 16 == 0 else
+            torch.empty((C, width), dtype=torch.uint8, device=dev))
     if C:
         _launch("rle_expand", "rle_expand_launch",
-                (streams, lengths, carries, out),
+                (streams, lengths, carries, rows),
                 (C, n, width, int(use_diff)), dev)
         rle_expand.launches += 1
-    return out if width == out_len else out[:, :out_len].contiguous()
+    if rows is out or (out is None and width == out_len):
+        return rows
+    return (rows[:, :out_len].contiguous() if out is None
+            else out.copy_(rows[:, :out_len]))
 
 
 rle_expand.launches = 0

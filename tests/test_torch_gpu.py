@@ -1044,20 +1044,23 @@ def _pipe_input(name, n):
 @pytest.mark.parametrize("use_diff", [False, True])
 @pytest.mark.parametrize("name", list(PIPE_CONFIGS))
 def test_step_graphs_equal_eager_steps(cuda, name, use_diff):
-    """Every output of a replayed encode step and decode step equals the
-    same step run launch by launch, and the pipelined container equals
-    the CPU plain path's."""
+    """Every output of a replayed encode step equals the same step run
+    launch by launch, each decode step written into its slice of the
+    decode's result equals the step run alone, and the pipelined
+    container equals the CPU plain path's. The codec keeps one graph, the
+    encode step's (the decode runs launch by launch)."""
     from huffman_codec_tpu_torch.models import chunked as tch
 
     kw, n = PIPE_CONFIGS[name]
     cfg = CodecConfig(use_diff=use_diff, **kw)
     data = _pipe_input(name, n)
     codec = TorchCodec(cfg)
-    blob = codec.encode(data)  # the warm-up, then the captures
+    blob = codec.encode(data)  # the warm-up and the capture, then replays
     assert codec.decode(blob) == data
-    assert [g.graph is not None for g in codec._graphs.values()] == [True] * 2
-    arr = np.frombuffer(data, np.uint8)
     S, cs = cfg.step_chunks, cfg.chunk_size
+    assert list(codec._graphs) == [S]
+    assert codec._graphs[S].graph is not None
+    arr = np.frombuffer(data, np.uint8)
     for k in range(-(-n // (S * cs))):
         base = codec._upload_step(arr, k * S, (k + 1) * S)
         got = codec._run_encode_step(base, S)
@@ -1065,9 +1068,8 @@ def test_step_graphs_equal_eager_steps(cuda, name, use_diff):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     hdr, staged = codec.stage_decode_steps(blob)
-    for st in staged:
-        got = codec._decode_step(hdr, st, S).clone()
-        assert torch.equal(got, codec._decode_step_eager(hdr, st))
+    for got, st in zip(codec.run_decode_steps(hdr, staged), staged):
+        assert torch.equal(got, codec._decode_step(hdr, st))
     if name != "main":
         assert blob == TorchCodec(cfg, device="cpu").encode(data)
 
@@ -1117,13 +1119,92 @@ def test_launch_counts_equal_with_and_without_graphs(cuda):
         codec.encode_chunk_range(arr, k * S, (k + 1) * S)
     hdr, staged = codec.stage_decode_steps(blob)
     for st in staged:
-        codec._decode_step_eager(hdr, st)
+        codec._decode_step(hdr, st)
     torch.cuda.synchronize()
     eager = K.launch_counts()
     assert counts[0] == counts[1] == eager
     assert all(eager[k] == 3 for k in ("rle_diff_encode", "histogram256",
                                        "lane_pack", "repad_words",
                                        "lane_decode", "rle_expand"))
+
+
+def _held_bytes() -> int:
+    """Device bytes of live tensors and live graphs' pools: what
+    ``memory_reserved()`` reads once the allocator's free blocks are
+    released."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def _long_lived_pass(seed: int, counts, cs: int) -> list:
+    """Inputs of the given chunk counts (partial last chunks), seeded
+    gradients at one of four noise amplitudes with a block of random
+    bytes, so that the sizes, lane strides and code-length buckets vary."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for c in counts:
+        n = (c - 1) * cs + int(rng.integers(1, cs))
+        i = np.arange(n)
+        amp = int(rng.choice([0, 2, 8, 32]))
+        x = (((i // 512) * 3 + (i % 512) // 2
+              + rng.integers(-amp, amp + 1, n)) & 255).astype(np.uint8)
+        m = int(rng.integers(1, n // 4 + 2))
+        at = int(rng.integers(0, n - m + 1))
+        x[at: at + m] = rng.integers(0, 256, m, dtype=np.uint8)
+        out.append(x.tobytes())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_diff", [False, True])
+def test_long_lived_codec_graphs_and_memory_bounded(cuda, use_diff):
+    """One codec round-trips two passes of inputs of varied sizes and
+    data, each input twice. It never keeps more graphs than
+    ``step_graph_bound`` allows, and the device memory held after the
+    second pass (new sizes and data, no new step geometry) is within one
+    2 MiB segment of the allocator (a small scratch may move to a new
+    one) of what it held after the first."""
+    from huffman_codec_tpu_torch.models.chunked import step_graph_bound
+
+    cs, step = 4096, 16
+    codec = TorchCodec(CodecConfig(use_diff=use_diff, chunk_size=cs,
+                                   lane=512, layout="sharded",
+                                   step_chunks=step))
+    bound = step_graph_bound(step)
+    assert bound == 5
+    held = []
+    # a count in every power-of-two class up to a step, and past it
+    for seed, counts in ((51, (1, 2, 3, 7, 12, 16, 23, 40)),
+                         (52, (2, 4, 5, 9, 14, 19, 33, 11))):
+        for data in _long_lived_pass(seed, counts, cs):
+            for _ in range(2):
+                assert codec.decode(codec.encode(data)) == data
+            assert len(codec._graphs) <= bound
+        held.append(_held_bytes())
+    assert sorted(codec._graphs) == [1, 2, 4, 8, 16]
+    assert held[1] - held[0] <= 2 << 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_len", [CS, 1000])
+def test_rle_expand_writes_into_out(cuda, out_len):
+    """``rle_expand(..., out=)`` writes the rows into ``out`` (directly
+    when out_len is a multiple of 16), returns it, launches once, and
+    equals the call without ``out``."""
+    chunks, lens, carries = _rows(cuda)
+    lens = lens.clamp(max=out_len)
+    s, ln = K.rle_diff_encode(chunks[:, :out_len].contiguous(), lens,
+                              carries, True, CAP)
+    want = K.rle_expand(s, ln, carries, out_len, True)
+    out = torch.full((s.shape[0], out_len), 7, dtype=torch.uint8,
+                     device=cuda)
+    K.reset_launches()
+    got = K.rle_expand(s, ln, carries, out_len, True, out=out)
+    assert K.launch_counts()["rle_expand"] == 1
+    assert got.data_ptr() == out.data_ptr() and torch.equal(out, want)
+    with pytest.raises(ValueError):
+        K.rle_expand(s, ln, carries, out_len, True, out=out[:, :-1])
 
 
 @pytest.mark.cuda
