@@ -119,10 +119,10 @@ runs the dispatch halves of both under
 ``torch.cuda.set_sync_debug_mode("error")``; checks that the launch counts
 (a replay adds what its capture recorded) equal an eager round trip's;
 prints the stage split of the end-to-end encode and decode (host staging,
-H2D, device, D2H, payload bytes, crc32, container; parse, bytes; device
-stages from CUDA events), the device encode with graphs beside the eager
-launches and the device decode (queued and host-paced), and the traced
-idle share of a round trip.
+device, payload bytes, crc32, container; parse, bytes; the device stage
+from CUDA events; the parse's copied bytes), the device encode with graphs
+beside the eager launches and the device decode (queued and host-paced),
+and the traced idle share of a round trip.
 
 A long-lived codec (the main path's config, diff off and on, one codec
 each for the whole phase) round-trips two passes of 16 seeded inputs of
@@ -2802,9 +2802,9 @@ def eager_round_trip_counts(K, codec, data: bytes, blob: bytes) -> dict:
 def pipeline_split(codec, data: bytes, blob: bytes) -> dict:
     """One end-to-end encode and decode with the codec's stage timer on:
     host seconds (staging; the encode's payload bytes, crc32 and
-    container; the decode's parse, bytes and crc32), device seconds from
-    CUDA events (H2D, device, D2H: sums over the steps, which overlap),
-    and the wall of each."""
+    container; the decode's parse, bytes and crc32), the steps' device
+    seconds from CUDA events (``device``: a sum over steps, which
+    overlap), the bytes the parse copied, and the wall of each."""
     from huffman_codec_tpu_torch.utils.profiling import StageTimer
 
     split = {}

@@ -542,12 +542,25 @@ class TorchCodec:
 
     @property
     def timer(self):
-        """A ``utils.profiling.StageTimer`` that receives the sharded
-        stream path's stage split (host staging, H2D, device, D2H; the
-        encode's payload bytes, crc32 and container; the decode's parse,
-        bytes and crc32), or None (the default: nothing is timed). Its
-        device stages come from CUDA events: call its ``resolve`` after
-        the encode or decode."""
+        """A ``utils.profiling.StageTimer`` that receives the codec's spans
+        and counters, or None (the default: nothing is timed or counted).
+        Host spans do not nest, so each one's total is a self time:
+        - the sharded stream path: ``host staging``, ``payload``,
+          ``crc32``, ``container`` (encode); ``parse``, ``host staging``,
+          ``bytes``, ``crc32`` (decode);
+        - ``decode_range``: ``parse``, ``host staging``, ``dispatch``
+          (the step's launches), ``wait``, ``bytes``;
+        - the global layout: ``upload``, ``dispatch`` (the candidates'
+          launches and their fetches), ``wait``, ``crc32``,
+          ``container``, ``v1 race`` (encode); ``parse``, ``upload``,
+          ``dispatch``, ``wait``, ``bytes``, ``crc32``, or ``v1 decode``
+          for a v1 blob (decode).
+        The adaptive block-size search and the sharded-adaptive steps lie
+        in no span. One device span, ``device``: the sharded steps' time
+        between CUDA events, added by the timer's ``resolve`` once the
+        work has run.
+        Counters: ``v1 races`` and ``v1 wins`` (``_race_v1``), ``parse
+        copied bytes`` (the container's bytes ``_parse`` copies)."""
         return self._xfer.timer
 
     @timer.setter
@@ -807,9 +820,13 @@ class TorchCodec:
     def _dispatch_global(self, data: bytes, bs, whole: bool) -> dict:
         """Upload the input and start one candidate's device stage.
         ``bs`` is the adaptive block size, None in stream mode."""
-        # a copy: the bytes object's buffer is read-only
-        x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
-        return self.run_global_stage(x.to(self.device), whole, bs)
+        xf = self._xfer
+        with xf.host_stage("upload"):
+            # a copy: the bytes object's buffer is read-only
+            x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(
+                self.device)
+        with xf.host_stage("dispatch"):
+            return self.run_global_stage(x, whole, bs)
 
     def _start_fetch(self, st: dict) -> None:
         """Start the device -> host copies of a dispatched candidate's
@@ -819,49 +836,59 @@ class TorchCodec:
         dense = self.config.entropy == "canonical"
         keys = [k for k, v in st.items() if isinstance(v, torch.Tensor)
                 and not (k == "payload" and dense)]
-        st["host"] = dict(zip(keys, self._xfer.fetch([st[k] for k in keys])))
-        st["fetched"] = self._xfer.record()
+        with self._xfer.host_stage("dispatch"):
+            st["host"] = dict(zip(keys,
+                                  self._xfer.fetch([st[k] for k in keys])))
+            st["fetched"] = self._xfer.record()
 
     def _presplice_payload(self, st: dict) -> None:
         """Second wave: once the candidate's manifest has landed, start the
         copy of its canonical payload's used prefix (``_bucket``)."""
         if self.config.entropy != "canonical":
             return
-        self._xfer.wait_host(st["fetched"])
-        st["used"] = int(st["host"]["meta"].numpy().sum(dtype=np.int64))
-        pay = st["payload"]
-        st["host"]["payload"] = self._xfer.fetch(
-            [pay[: _bucket(st["used"], pay.shape[0])]])[0]
-        st["fetched"] = self._xfer.record()
+        xf = self._xfer
+        with xf.host_stage("wait"):
+            xf.wait_host(st["fetched"])
+        with xf.host_stage("dispatch"):
+            st["used"] = int(st["host"]["meta"].numpy().sum(dtype=np.int64))
+            pay = st["payload"]
+            st["host"]["payload"] = xf.fetch(
+                [pay[: _bucket(st["used"], pay.shape[0])]])[0]
+            st["fetched"] = xf.record()
 
     def _assemble_global(self, data: bytes, st: dict) -> bytes:
         """The container of a candidate whose fetches were started; the
         chunks past the stream's end hold no lane words and drop out."""
-        self._xfer.wait_host(st["fetched"])
-        h = st["host"]
-        cs = st["cs"]
-        total = int(h["total"])
-        n_chunks = _cdiv(total, cs)
-        meta = h["meta"].numpy()[:n_chunks]
-        entropy = self.config.entropy
-        canonical = entropy == "canonical"
-        adapt_meta = None
-        if st["bs"] is not None:
-            tile_lens = h["tile_lens"].numpy()
-            # the payload estimate: the lanes' words, or the FGK bits
-            est = (4 * int(meta.sum()) if canonical
-                   else int(meta.sum()) // 8)
-            grouped = grouped_manifest(len(tile_lens), st["bs"], est)
-            adapt_meta = (*st["wh"], st["bs"], h["dirs"].numpy(),
-                          tile_lens, grouped)
-        payload = h["payload"][: st["used"]] if canonical else h["payload"]
-        return self._container(
-            _words_to_wire(payload), st["n"], total,
-            _chunk_bits(meta, entropy),
-            h["tables"].numpy()[:n_chunks] if canonical else None,
-            meta if canonical else None, None,
-            zlib.crc32(data), chunk_size=cs, lane=st["lane"],
-            adapt_meta=adapt_meta)
+        xf = self._xfer
+        with xf.host_stage("wait"):
+            xf.wait_host(st["fetched"])
+        with xf.host_stage("crc32"):
+            crc = zlib.crc32(data)
+        with xf.host_stage("container"):
+            h = st["host"]
+            cs = st["cs"]
+            total = int(h["total"])
+            n_chunks = _cdiv(total, cs)
+            meta = h["meta"].numpy()[:n_chunks]
+            entropy = self.config.entropy
+            canonical = entropy == "canonical"
+            adapt_meta = None
+            if st["bs"] is not None:
+                tile_lens = h["tile_lens"].numpy()
+                # the payload estimate: the lanes' words, or the FGK bits
+                est = (4 * int(meta.sum()) if canonical
+                       else int(meta.sum()) // 8)
+                grouped = grouped_manifest(len(tile_lens), st["bs"], est)
+                adapt_meta = (*st["wh"], st["bs"], h["dirs"].numpy(),
+                              tile_lens, grouped)
+            payload = h["payload"][: st["used"]] if canonical else h["payload"]
+            return self._container(
+                _words_to_wire(payload), st["n"], total,
+                _chunk_bits(meta, entropy),
+                h["tables"].numpy()[:n_chunks] if canonical else None,
+                meta if canonical else None, None,
+                crc, chunk_size=cs, lane=st["lane"],
+                adapt_meta=adapt_meta)
 
     def _encode_global(self, data: bytes, bs, whole: bool) -> bytes:
         st = self._dispatch_global(data, bs, whole)
@@ -881,8 +908,15 @@ class TorchCodec:
                 or len(blob) > self._V1_RACE_MAX_OUT):
             return blob
         cfg = self.config
-        v1 = runtime.v1_compress(data, cfg.use_diff, cfg.use_adapt, cfg.width)
-        return v1 if len(v1) < len(blob) else blob
+        xf = self._xfer
+        with xf.host_stage("v1 race"):
+            v1 = runtime.v1_compress(data, cfg.use_diff, cfg.use_adapt,
+                                     cfg.width)
+        won = len(v1) < len(blob)
+        if xf.timer is not None:
+            xf.timer.count("v1 races")
+            xf.timer.count("v1 wins", int(won))
+        return v1 if won else blob
 
     def _container(self, payload, orig, total, chunk_bits, tables,
                    lane_words, sharded_meta, crc=0, chunk_size=None,
@@ -1148,7 +1182,9 @@ class TorchCodec:
         """Random-access decode of ``[start, start + length)`` (sharded
         layout only): only the covering chunks are decoded, each from its
         manifest row and its stored diff carry."""
-        hdr = self._parse(blob)
+        xf = self._xfer
+        with xf.host_stage("parse"):
+            hdr = self._parse(blob, xf.timer)
         self._check_supported(hdr)
         if not hdr["flags"] & FLAG_SHARDED:
             raise ValueError("decode_range requires the sharded layout")
@@ -1159,12 +1195,18 @@ class TorchCodec:
         cs = hdr["chunk_size"]
         c0, c1 = start // cs, (start + length - 1) // cs + 1
         if hdr["flags"] & FLAG_ADAPT:
-            flat = self._decode_adapt_bands(blob, hdr, c0, c1).cpu().numpy()
+            staged = self.stage_adapt_bands(blob, hdr, c0, c1)
+            with xf.host_stage("dispatch"):
+                out = self.run_adapt_bands(hdr, staged)
         else:
             step = self._stage_step(blob, hdr, c0, c1, c1 - c0)
-            flat = self._decode_step(hdr, step).cpu().numpy()
+            with xf.host_stage("dispatch"):
+                out = self._decode_step(hdr, step)
+        with xf.host_stage("wait"):
+            flat = out.cpu().numpy()
         lo = start - c0 * cs
-        return flat[lo: lo + length].tobytes()
+        with xf.host_stage("bytes"):
+            return flat[lo: lo + length].tobytes()
 
     def stage_global(self, blob: bytes, hdr: dict) -> dict:
         """Host -> device transfer of a global-layout container: every
@@ -1175,19 +1217,25 @@ class TorchCodec:
             raise ValueError("stage_global requires the global layout")
         cs, n_chunks = hdr["chunk_size"], hdr["n_chunks"]
         dev = self.device
+        xf = self._xfer
         if hdr["entropy"] == ENTROPY_FGK:
-            counts = np.clip(
-                hdr["total"] - np.arange(n_chunks, dtype=np.int64) * cs,
-                0, cs).astype(np.int32)
-            st = {"rcs": cs, "counts": torch.from_numpy(counts).to(dev),
+            with xf.host_stage("upload"):
+                counts = torch.from_numpy(np.clip(
+                    hdr["total"] - np.arange(n_chunks, dtype=np.int64) * cs,
+                    0, cs).astype(np.int32)).to(dev)
+            # the words' own upload is a "host staging" span
+            st = {"rcs": cs, "counts": counts,
                   "words": self._stage_fgk_words(blob, hdr, 0, n_chunks,
                                                  n_chunks)}
         else:
-            st = self._stage_global_lanes(blob, hdr)
+            with xf.host_stage("upload"):
+                st = self._stage_global_lanes(blob, hdr)
         if hdr["flags"] & FLAG_ADAPT:
-            st["dirs"] = torch.from_numpy(hdr["dirs"]).to(dev)
-            key = "group_offs" if hdr["flags"] & FLAG_AGROUP else "tile_lens"
-            st[key] = torch.from_numpy(hdr[key].astype(np.int32)).to(dev)
+            with xf.host_stage("upload"):
+                st["dirs"] = torch.from_numpy(hdr["dirs"]).to(dev)
+                key = ("group_offs" if hdr["flags"] & FLAG_AGROUP
+                       else "tile_lens")
+                st[key] = torch.from_numpy(hdr[key].astype(np.int32)).to(dev)
         return st
 
     def _stage_global_lanes(self, blob: bytes, hdr: dict) -> dict:
@@ -1235,39 +1283,54 @@ class TorchCodec:
                                   use_diff), w * h
 
     def _decode_global(self, blob: bytes, hdr: dict) -> torch.Tensor:
-        out, m = self.run_global_decode(hdr, self.stage_global(blob, hdr))
-        if int(m) != hdr["orig"]:
+        """A global-layout container's bytes in pinned host memory (the
+        device's result itself on the CPU), once they have landed."""
+        xf = self._xfer
+        st = self.stage_global(blob, hdr)
+        with xf.host_stage("dispatch"):
+            out, m = self.run_global_decode(hdr, st)
+        with xf.host_stage("wait"):
+            m = int(m)
+        if m != hdr["orig"]:
             raise ValueError("corrupt v3 container: size mismatch")
-        return out
+        with xf.host_stage("dispatch"):
+            host = xf.fetch([out[: hdr["orig"]]])[0]
+        with xf.host_stage("wait"):
+            xf.fence()
+        return host
 
     def decode(self, blob: bytes) -> bytes:
+        xf = self._xfer
         if blob[:6] != V3_MAGIC:
             # encode() may have returned a v1 blob (the race), and files
             # of the reference binary are v1 too
             if is_v2(blob):
                 return runtime.v2_decompress(blob)
-            # the native decoder trusts its input: hold the 9-byte header
-            # against the blob first (a symbol costs at least one bit)
-            count, _, _ = parse_huff_header(blob)
-            if count > 8 * (len(blob) - HUFF_HEADER_BYTES):
-                raise ValueError("invalid Huffman coding file contents")
-            return runtime.v1_decompress(blob)
-        xf = self._xfer
+            with xf.host_stage("v1 decode"):
+                # the native decoder trusts its input: hold the 9-byte
+                # header against the blob first (a symbol costs at least
+                # one bit)
+                count, _, _ = parse_huff_header(blob)
+                if count > 8 * (len(blob) - HUFF_HEADER_BYTES):
+                    raise ValueError("invalid Huffman coding file contents")
+                return runtime.v1_decompress(blob)
         with xf.host_stage("parse"):
-            hdr = self._parse(blob)
+            hdr = self._parse(blob, xf.timer)
         if hdr["orig"] == 0:
             return b""
         self._check_supported(hdr)
-        if hdr["flags"] & FLAG_SHARDED and hdr["flags"] & FLAG_ADAPT:
-            flat = self._decode_adapt_bands(blob, hdr, 0, hdr["n_chunks"])
-        elif hdr["flags"] & FLAG_SHARDED:
-            flat = self._run_decode(hdr, self.stage_decode_steps(blob,
-                                                                 hdr)[1])
+        if hdr["flags"] & FLAG_SHARDED:
+            if hdr["flags"] & FLAG_ADAPT:
+                flat = self._decode_adapt_bands(blob, hdr, 0,
+                                                hdr["n_chunks"])
+            else:
+                flat = self._run_decode(
+                    hdr, self.stage_decode_steps(blob, hdr)[1])
+            # the decoded bytes, fetched once into pinned memory
+            host = xf.fetch([flat[: hdr["orig"]]])[0]
+            xf.fence()
         else:
-            flat = self._decode_global(blob, hdr)
-        # the decoded bytes, fetched once into pinned memory
-        host = xf.fetch([flat[: hdr["orig"]]])[0]
-        xf.fence()
+            host = self._decode_global(blob, hdr)
         with xf.host_stage("bytes"):
             result = host.numpy().tobytes()
         with xf.host_stage("crc32"):
@@ -1277,7 +1340,10 @@ class TorchCodec:
         return result
 
     @staticmethod
-    def _parse(blob: bytes) -> dict:
+    def _parse(blob: bytes, timer=None) -> dict:
+        """A v3 container's header and manifest. ``timer`` (a
+        ``StageTimer``, or None) counts the container's bytes that the
+        parse copies, as ``parse copied bytes``."""
         if len(blob) < 43 or blob[:6] != V3_MAGIC or blob[6] != 3:
             raise ValueError("invalid v3 container")
         flags = blob[7]
@@ -1321,6 +1387,7 @@ class TorchCodec:
         if entropy == ENTROPY_CANONICAL and n_chunks:
             L = (_sharded_cap(chunk_size, "canonical", lane)
                  if flags & FLAG_SHARDED else chunk_size)
+            tables_at = pos
             tables = _unpackk(blob[pos:], n_chunks * 256, tblw).reshape(
                 n_chunks, 256).astype(np.uint8)
             pos += (n_chunks * 256 * tblw + 7) // 8
@@ -1330,6 +1397,7 @@ class TorchCodec:
                 total, chunk_size, n_chunks)
             used = -(-counts // lane)
             n_entries = int(used.sum())
+            words_at = pos
             entries = _unpackk(blob[pos:], n_entries, kw)
             pos += (n_entries * kw + 7) // 8
             lw = np.zeros((n_chunks, lpc), np.int32)
@@ -1345,6 +1413,14 @@ class TorchCodec:
                        wl_bucket=min(wb, lane_words_cap(lane)),
                        max_len_bucket=next(
                            b for b in (8, 12, 16, 24, 31) if b >= ml))
+        if timer is not None:
+            # the manifest arrays copied out of the blob, and the slices
+            # from the tables and from the lane words to the blob's end
+            copied = sum(hdr[k].nbytes for k in (
+                "group_offs", "tile_lens", "rle_lens", "carries") if k in hdr)
+            if "tables" in hdr:
+                copied += 2 * len(blob) - tables_at - words_at
+            timer.count("parse copied bytes", copied)
         hdr.update(
             chunk_bits=chunk_bits, payload_off=pos,
             chunk_offs=np.concatenate([

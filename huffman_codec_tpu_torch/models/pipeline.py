@@ -45,10 +45,12 @@ def aligned(nbytes: int) -> int:
 
 
 class Transfers:
-    """Host <-> device copies of one codec. ``timer`` (a
-    ``utils.profiling.StageTimer``, None by default) receives the host
-    staging time on the host clock and the copies' device times
-    (``H2D``, ``D2H``) from CUDA events."""
+    """Host <-> device copies of one codec, and the codec's timer:
+    ``timer`` (a ``utils.profiling.StageTimer``, None by default)
+    receives the spans the codec opens through ``host_stage`` and
+    ``device_stage``, an upload's ``host staging`` among them; with no
+    timer they enter nothing. No span times the copies themselves: a
+    profiler's trace names each."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -99,9 +101,8 @@ class Transfers:
         if self.cuda:
             compute = torch.cuda.current_stream(self.device)
             with torch.cuda.stream(self.copy_stream):
-                with self.device_stage("H2D"):
-                    base = torch.empty_like(host, device=self.device)
-                    base.copy_(host, non_blocking=True)
+                base = torch.empty_like(host, device=self.device)
+                base.copy_(host, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record(self.copy_stream)
             # freed only once the compute stream is past its last use
@@ -125,11 +126,10 @@ class Transfers:
         if not self.cuda:
             return list(tensors)
         out = []
-        with self.device_stage("D2H"):
-            for t in tensors:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                out.append(h)
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            out.append(h)
         return out
 
     def record(self):

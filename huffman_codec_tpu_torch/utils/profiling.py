@@ -1,5 +1,5 @@
-"""Per-stage wall timers, device times from CUDA events, and profiler
-traces.
+"""Per-stage wall timers and counters, device times from CUDA events,
+and profiler traces.
 
 Usage::
 
@@ -8,9 +8,11 @@ Usage::
             out = codec.encode(data)
     print(t.report())
 
-    codec.timer = StageTimer()  # the stage split of the sharded path
+    codec.timer = StageTimer()  # the codec's spans and counters
     codec.encode(data)
     codec.timer.resolve()  # device stages timed by CUDA events
+    codec.timer.stages["crc32"]  # seconds of a span
+    codec.timer.stages["v1 races"]  # a counter (in codec.timer.counters)
 
     seconds = device_time(kernels.histogram256, (data, lengths))
 
@@ -31,10 +33,26 @@ import torch
 # run before the first starts (a wrapper call costs tens of microseconds)
 QUEUE_CYCLES_PER_RUN = 400_000
 
+# the prefix of a host span's profiler range
+SPAN_PREFIX = "codec."
+
 
 @dataclass
 class StageTimer:
+    """Named totals of spans and counters, both in ``stages``.
+
+    A span adds seconds: ``stage`` on the host clock, ``device_stage``
+    from CUDA events (added by ``resolve``). A counter adds a number of
+    things, bytes or calls (``count``); its name goes into ``counters``,
+    so a reader of ``stages`` tells the two apart by name.
+    ``TorchCodec.timer`` lists the names the codec records.
+
+    While a profiler records, each host span is also a
+    ``torch.profiler.record_function("codec.<name>")`` range, so that the
+    profiler puts the spans on its own clock, beside the device's work."""
+
     stages: dict[str, float] = field(default_factory=dict)
+    counters: set[str] = field(default_factory=set)
     _t0: float = 0.0
     _events: list = field(default_factory=list)
 
@@ -50,15 +68,25 @@ class StageTimer:
         """Time one stage; pass ``sync=tensor`` to wait for the work queued
         on that tensor's CUDA device (launches return before the device
         has run them, so without it the time is the host's alone)."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None and sync.is_cuda:
-                torch.cuda.synchronize(sync.device)
-            self.stages[name] = self.stages.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
+        # a profiler range only while a profiler records: with none
+        # running, entering one still costs three times the span itself
+        with (torch.profiler.record_function(SPAN_PREFIX + name)
+              if torch.autograd._profiler_enabled()
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if sync is not None and sync.is_cuda:
+                    torch.cuda.synchronize(sync.device)
+                self.stages[name] = self.stages.get(name, 0.0) + (
+                    time.perf_counter() - t0
+                )
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the counter ``name``."""
+        self.counters.add(name)
+        self.stages[name] = self.stages.get(name, 0) + n
 
     @contextlib.contextmanager
     def device_stage(self, name: str):
@@ -83,11 +111,17 @@ class StageTimer:
         self._events.clear()
 
     def report(self) -> str:
-        total = self.stages.get("total") or sum(self.stages.values())
+        """The spans, longest first, each with its share of ``total`` (of
+        their sum without it), then the counters."""
+        spans = {k: v for k, v in self.stages.items()
+                 if k not in self.counters}
+        total = spans.get("total") or sum(spans.values())
         lines = []
-        for name, dt in sorted(self.stages.items(), key=lambda kv: -kv[1]):
+        for name, dt in sorted(spans.items(), key=lambda kv: -kv[1]):
             pct = 100.0 * dt / total if total else 0.0
             lines.append(f"{name:>16s}  {dt * 1e3:9.2f} ms  {pct:5.1f}%")
+        for name in sorted(self.counters):
+            lines.append(f"{name:>16s}  {self.stages[name]:,}")
         return "\n".join(lines)
 
 

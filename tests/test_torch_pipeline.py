@@ -168,4 +168,5 @@ def test_stage_split_names_on_the_cpu():
     tc.timer.resolve()
     # the device stages are CUDA events: none on the CPU
     assert set(tc.timer.stages) == {"host staging", "payload", "crc32",
-                                    "container", "parse", "bytes"}
+                                    "container", "parse", "bytes",
+                                    "parse copied bytes"}
