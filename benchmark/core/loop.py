@@ -24,7 +24,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from benchmark import codecs, requests
+from benchmark import codecs, reference, requests
 from benchmark.codecs.torch_codec import fields as codec_config
 from benchmark.core import traffic
 from benchmark.core.cells import Cell
@@ -87,7 +87,8 @@ class Context:
     pool: traffic.Pool
     objs: list  # the pool's objects as bytes
     blobs: list  # each object's encode, made in the set-up
-    sizes: list  # work counts of each container (``_sizes``)
+    sizes: list  # work counts of each container (``_sizes``, or the
+    # ``sizes`` of the reference module the configuration names)
 
 
 class Lossy:
@@ -114,8 +115,9 @@ def _sync(device) -> None:
 
 def _sizes(blob: bytes) -> dict:
     """Work counts of a sharded canonical container from its header and
-    manifest (the roofline readers' bytes): the RLE bytes and the payload
-    bytes."""
+    manifest (the roofline readers' bytes): the RLE bytes, the payload
+    bytes and the restored bytes. A configuration that names a reference
+    module with a ``sizes`` of its own reads its containers by that."""
     if blob[:6] != C.MAGIC or not blob[7] & C.FLAG_SHARDED:
         return {}
     tw, kw = blob[9], blob[10]
@@ -135,6 +137,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     "bpc", "trace_busy_s", "trace_window_s"})."""
     t_start = time.perf_counter() if t_start is None else t_start
     cfg = codec_config(cell.config)
+    ref = reference.for_config(cell.config, cfg)  # a bad name ends it here
     codec = codecs.build(cell.config, device)
     server = Lossy(codec) if control == "lsb" else codec
     if control not in (None, "lsb"):
@@ -147,8 +150,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     # warm-up: kernel builds, the step graph, the host runtime), and each
     # request kind run once more at the shapes the window uses
     blobs = [server.encode(o) for o in objs]
+    sizes = getattr(ref, "sizes", _sizes)
     ctx = Context(server, cell.config, pool, objs, blobs,
-                  [_sizes(b) for b in blobs])
+                  [sizes(b) for b in blobs])
     failed = 0
     for k in kinds:
         try:
@@ -236,7 +240,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                       if s.kind == kind) for kind in kinds}
         run.extra["traced_spans"] = spans[: len(run.trace.spans)]
     samples = {"objects": pool.objects, "ranges": pool.ranges,
-               "config": cfg, "results": {k: res[k].items for k in kinds}}
+               "config": cfg, "reference": cell.config.get("reference"),
+               "seed": seed, "results": {k: res[k].items for k in kinds}}
     # the program's state goes before the reference runs
     del codec, server, blobs, ctx
     if torch.device(device).type == "cuda":

@@ -234,6 +234,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     import torch.multiprocessing as mp
 
     t_start = time.perf_counter() if t_start is None else t_start
+    if "reference" in cell.config:
+        # the mesh's steps are judged as canonical columns
+        # (``container.judge_columns``), never by a named module
+        raise ValueError("the four-rank runner takes no reference module")
     world = int(cell.config["ranks"])
     port = free_port()
     ctx = mp.get_context("spawn")

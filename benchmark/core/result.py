@@ -4,6 +4,8 @@ its own file under ``benchmark/metrics``, and the device."""
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from benchmark.core import judge
@@ -37,7 +39,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
         run_data, samples, info = loop.run_cell(
             cell, seed, seconds, trace, device=device, control=control,
             t_start=t_start)
+        t_judge = time.perf_counter()
         checks = judge.judge_single(samples, info["failed"], device)
+        info["judge_s"] = time.perf_counter() - t_judge
         sampled = judge.sampled(samples)
     run_data.extra["info"] = info
     wanted = cell.per_layer if trace else cell.end_to_end
@@ -59,6 +63,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     notes = [f"bpc {info['bpc']!r} (8 x {info.get('bpc_of', 'container')} "
              f"bytes / input bytes over the pool)",
              f"window {info['window_s']!r} s, set-up {info['setup_s']!r} s, "
-             f"answers judged {sampled}"]
+             f"answers judged {sampled}"
+             + (f" in {info['judge_s']!r} s" if "judge_s" in info else "")]
     notes += [f"check {k} {v} limit {lim}" for k, (v, lim) in checks.items()]
     return line, notes

@@ -4,12 +4,27 @@ made, and imports nothing of the program, of JAX or of the JAX package.
 
 - ``judge_encode``: an encode's result, a v3 container (``container``)
   or, in the global layout, the v1 blob of the race (``v1``), which is
-  kept only where it is strictly smaller than the v3 container;
+  kept only where it is strictly smaller than the v3 container; or, where
+  the configuration names a reference module (``for_config``), by that
+  module;
 - ``judge_bytes``: a decode's (or a range's) bytes against the input's;
 - ``container.judge_columns``: a mesh step's gathered outputs.
+
+A configuration's ``"reference": "<name>"`` names the module
+``benchmark/reference/<name>.py`` that judges its encodes. Such a module
+has ``judge_encode(blob, data, cfg, device, rng)``, returning
+{"bad_bytes", "bad_tables", "v1"} as ``judge_encode`` here does, with
+``rng`` a ``numpy.random.Generator`` drawn from the run's seed for what
+it samples; it may have ``sizes(blob)``, a container's work counts for
+the readers (``benchmark.core.loop._sizes`` where it has none), and
+``check(cfg)``, which raises for a configuration it cannot judge. A new
+reference is a new module and its name in a configuration.
 """
 
 from __future__ import annotations
+
+import importlib
+import re
 
 import numpy as np
 
@@ -21,13 +36,42 @@ V1_RACE_MAX_IN = 1 << 20
 V1_RACE_MAX_OUT = 1 << 16
 
 
+_NAME = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
+
+
+def for_config(config: dict, cfg: dict):
+    """The reference module a configuration file's contents ``config``
+    name under ``reference``, checked against its ``CodecConfig`` fields
+    ``cfg``; None without the key (the judge of this module). Raises
+    where the name is no module of ``benchmark/reference`` with a
+    ``judge_encode``, or the module's ``check`` refuses ``cfg``: at
+    set-up, so that such a configuration is never judged by the
+    default."""
+    name = config.get("reference")
+    if name is None:
+        return None
+    if not isinstance(name, str) or not _NAME.match(name):
+        raise ValueError(f"reference {name!r} is not a module name")
+    mod = importlib.import_module(f"benchmark.reference.{name}")
+    if not callable(getattr(mod, "judge_encode", None)):
+        raise ValueError(f"benchmark/reference/{name}.py has no "
+                         "judge_encode")
+    if hasattr(mod, "check"):
+        mod.check(cfg)
+    return mod
+
+
 def judge_bytes(got: bytes, want: np.ndarray) -> int:
     """Bytes that differ, a length difference counting as differing."""
     return container._mismatch(got, want.tobytes())
 
 
-def judge_encode(blob: bytes, data: np.ndarray, cfg: dict, device) -> dict:
-    """Judge one encode result; see ``container.judge_v3``.
+def judge_encode(blob: bytes, data: np.ndarray, cfg: dict, device,
+                 rng: np.random.Generator | None = None,
+                 name: str | None = None) -> dict:
+    """Judge one encode result: by the reference module ``name`` where a
+    configuration names one (``for_config``; ``rng`` draws what it
+    samples), else as follows; see ``container.judge_v3``.
 
     In the global layout the result must also be the smallest of what the
     layout chooses from: the whole-file candidate, the chunked one (the
@@ -39,6 +83,9 @@ def judge_encode(blob: bytes, data: np.ndarray, cfg: dict, device) -> dict:
     not the smallest only where the bounds prove it, and then all its
     bytes count as differing. Returns {"bad_bytes", "bad_tables", "v1": 1
     if the result is a v1 blob}."""
+    if name is not None:
+        return for_config({"reference": name}, cfg).judge_encode(
+            blob, data, cfg, device, rng)
     use_diff = bool(cfg["use_diff"])
     glob = cfg["layout"] == "global"
     race = glob and len(data) <= V1_RACE_MAX_IN

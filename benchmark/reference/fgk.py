@@ -1,7 +1,10 @@
 """FGK adaptive Huffman encoder: a frozen copy of the port's pure-Python
 model of the reference's ``huffman.cpp`` (``pyref/fgk.py``, its encoder
 half), kept here so that the benchmark's reference imports nothing of
-the program. The line references are to the reference's sources.
+the program, with the successor search done by a scan in place of the
+DFS (the same answer, about 2-15x faster a symbol; the DFS is kept in
+``benchmark/tests/test_bench_fgk.py``, which holds the two equal). The
+line references are to the reference's sources.
 
 Design is array-based (slots ordered by decreasing nodeNum), NOT a pointer
 tree. Slot ``k`` holds the node with nodeNum ``512 - k`` (root = slot 0;
@@ -79,20 +82,26 @@ class FGKTree:
         breaking the non-increasing order inside the updated node's subtree.
         The DFS is immune because such dirty nodes are never reachable (their
         subtree root has freq <= f).
+
+        The DFS reaches a node exactly when every ancestor of it has freq
+        > f (ancestors are internal), so its answer is the lowest slot
+        with freq == f whose ancestors all have freq > f: the slots are
+        scanned in order for freq == f (``list.index``) and each hit's
+        ancestors checked, which visits a few nodes where the DFS visits
+        every internal node with freq > f.
         """
-
-        def dfs(k: int) -> int:
-            if not self.is_leaf(k) and self.freq[k] > f:
-                l = dfs(self.left[k])
-                r = dfs(self.right[k])
-                if l != NIL and r != NIL:
-                    return min(l, r)  # lower slot == higher nodeNum
-                return l if l != NIL else r
-            if self.freq[k] == f:
+        freq, parent = self.freq, self.parent
+        k = -1
+        while True:
+            try:
+                k = freq.index(f, k + 1, self.n_slots)
+            except ValueError:
+                return NIL
+            p = parent[k]
+            while p != NIL and freq[p] > f:
+                p = parent[p]
+            if p == NIL:
                 return k
-            return NIL
-
-        return dfs(0)
 
     def _swap(self, a: int, b: int) -> None:
         """Exchange the subtree contents of slots a and b (huffman.cpp:186-217).

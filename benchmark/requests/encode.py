@@ -1,7 +1,10 @@
 """``encode``: the server's encode of a pool object, judged container by
-container (or v1 blob) against the plain reference."""
+container (or v1 blob) against the plain reference, or by the reference
+module the configuration names (``reference.for_config``)."""
 
 from __future__ import annotations
+
+import numpy as np
 
 from benchmark import reference
 
@@ -20,11 +23,13 @@ def serve(ctx, k: int):
 
 def judge(samples: dict, items: list, device) -> dict:
     bad = {"encode_bad_bytes": 0, "encode_bad_tables": 0}
-    for _, k, out in items:
+    for i, k, out in items:
         if isinstance(out, Exception):
             continue
-        got = reference.judge_encode(out, samples["objects"][k],
-                                     samples["config"], device)
+        got = reference.judge_encode(
+            out, samples["objects"][k], samples["config"], device,
+            rng=np.random.default_rng([samples["seed"], 19, i]),
+            name=samples["reference"])
         bad["encode_bad_bytes"] += got["bad_bytes"]
         bad["encode_bad_tables"] += got["bad_tables"]
     return bad

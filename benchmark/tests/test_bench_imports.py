@@ -49,7 +49,7 @@ def test_harness_loads_no_jax():
 def test_reference_loads_nothing_of_the_program():
     got = _loaded("import benchmark.reference\n"
                   "from benchmark.reference import canonical, container, "
-                  "fgk, stream, v1")
+                  "fgk, stream, v1, v3_fgk")
     assert not got & (FORBIDDEN | {"huffman_codec_tpu_torch"}), got
 
 

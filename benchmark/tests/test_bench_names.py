@@ -149,3 +149,102 @@ print(kind, n, judge.judge_single(samples, 0, 'cpu'))
     assert p.returncode == 0, p.stderr[-2000:]
     assert p.stdout.split() == ["echo", "4096", "{'failed_requests':",
                                 "(0,", "0),", "'echo_bad':", "(0,", "0)}"]
+
+
+def test_added_reference_is_found(tmp_path):
+    """A reference module added as a new file, in a copy of the
+    benchmark, is found by the name a configuration gives it: its
+    ``sizes`` gives the requests' work counts, and its checks, drawn
+    with the run's ``rng``, reach ``judge.judge_single``."""
+    root = tmp_path / "checkout"
+    shutil.copytree(cells.BENCH_DIR, root / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(cells.ROOT / "BENCHMARK.json", root)
+    (root / "benchmark/reference/counted.py").write_text(
+        "def judge_encode(blob, data, cfg, device, rng):\n"
+        "    return {'bad_bytes': 7, 'bad_tables': int(rng.integers(1, 2)),"
+        " 'v1': 0}\n\n\n"
+        "def sizes(blob):\n    return {'blob_bytes': len(blob)}\n")
+    script = f"""
+import json
+import sys
+sys.path[:0] = ['.', {str(cells.ROOT)!r}]
+import benchmark
+assert benchmark.__file__.startswith({str(root)!r})
+from benchmark.core import judge, loop
+from benchmark.tests.conftest import SEED, small
+out = []
+for kind in ('decode', 'encode'):  # a window of one request each
+    cell = small('sharded-m.bulk')
+    cell.config['reference'] = 'counted'
+    cell.mix['requests'] = [kind]
+    run, samples, info = loop.run_cell(cell, SEED, 0.0, False, device='cpu')
+    assert [s.kind for s in run.spans] == [kind]
+    out.append(run.spans[0].work)
+    checks = judge.judge_single(samples, info['failed'], 'cpu')
+    out.append({{k: v[0] for k, v in checks.items()}})
+print(json.dumps(out))
+"""
+    p = subprocess.run([sys.executable, "-c", script], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
+    work, decoded, _, encoded = json.loads(p.stdout.strip().splitlines()[-1])
+    assert set(work) == {"blob_bytes"} and work["blob_bytes"] > 0
+    assert decoded == {"failed_requests": 0, "decode_bad_bytes": 0}
+    assert encoded == {"failed_requests": 0, "encode_bad_bytes": 7,
+                       "encode_bad_tables": 1}
+
+
+@pytest.mark.parametrize("w", [w["name"] for w in BENCH["workloads"]])
+def test_cells_keep_the_default_judge(w):
+    """The cells' configurations name no reference module, so that their
+    encodes are judged as before, and ``_sizes`` reads their containers'
+    work counts as the program's own parse does."""
+    import numpy as np
+
+    from benchmark import reference
+    from benchmark.codecs.torch_codec import fields
+    from benchmark.core import loop
+    from huffman_codec_tpu_torch import CodecConfig, TorchCodec
+
+    cell = cells.find_cell(w)
+    cfg = fields(cell.config)
+    assert "reference" not in cell.config
+    assert reference.for_config(cell.config, cfg) is None
+    x = np.arange(3 * cfg["chunk_size"] - 1000, dtype=np.int64)
+    x = ((x % 512) // 3 + (x // 512) % 7).astype(np.uint8)
+    blob = TorchCodec(CodecConfig(**cfg), device="cpu").encode(x.tobytes())
+    want = {}
+    if cfg["layout"] == "sharded":
+        hdr = TorchCodec._parse(blob)
+        want = {"rle_bytes": hdr["total"],
+                "payload_bytes": len(blob) - hdr["payload_off"],
+                "out_bytes": len(x)}
+    assert loop._sizes(blob) == want
+
+
+@pytest.mark.parametrize("w, name", [
+    ("sharded-m.bulk", "no_such_reference"),
+    ("sharded-m.bulk", "container"),  # a module with no judge_encode
+    ("sharded-m.bulk", "../container"),
+    ("sharded-m.bulk", "v3_fgk"),  # canonical entropy
+    ("global-m.images", "v3_fgk"),  # the global layout
+    ("mesh4-m.bulk", "v3_fgk")])
+def test_a_reference_it_cannot_use_fails_at_setup(w, name, monkeypatch):
+    """A configuration's reference that is no module, has no judge, or
+    cannot judge the configuration ends the run before the system under
+    test is built (or the ranks started): never judged by the default."""
+    import torch.multiprocessing
+
+    from benchmark import codecs
+    from benchmark.core import result
+
+    def built(*args, **kwargs):
+        raise AssertionError("set-up went on")
+
+    monkeypatch.setattr(codecs, "build", built)
+    monkeypatch.setattr(torch.multiprocessing, "get_context", built)
+    cell = cells.find_cell(w)
+    cell.config["reference"] = name
+    with pytest.raises((ModuleNotFoundError, ValueError)):
+        result.run(cell, 1, 1.0, False, device="cpu")
