@@ -585,12 +585,17 @@ class TorchCodec:
           ``container``, ``v1 race`` (encode); ``parse``, ``upload``,
           ``dispatch``, ``wait``, ``bytes``, ``crc32``, or ``v1 decode``
           for a v1 blob (decode).
+        - FGK entropy adds ``fgk strip`` (the sharded encode's strip of
+          its word rows, ``chunk_bytes`` with its synchronisations).
         The adaptive block-size search and the sharded-adaptive steps lie
-        in no span. One device span, ``device``: the sharded steps' time
-        between CUDA events, added by the timer's ``resolve`` once the
-        work has run.
+        in no span. Device spans, between CUDA events, added by the
+        timer's ``resolve`` once the work has run: ``device``, the sharded
+        steps' time; ``fgk rows``, an FGK decode's cut of its payload
+        into word rows as it is staged.
         Counters: ``v1 races`` and ``v1 wins`` (``_race_v1``), ``parse
-        copied bytes`` (the container's bytes ``_parse`` copies)."""
+        copied bytes`` (the container's bytes ``_parse`` copies), ``fgk
+        code bits`` (the bits of the FGK streams a sharded encode wrote,
+        or a decode staged)."""
         return self._xfer.timer
 
     @timer.setter
@@ -643,9 +648,12 @@ class TorchCodec:
         ones replay without synchronising) and clones its outputs, since
         every step is dispatched before any is fetched; S comes from
         ``encode_step_chunks``, so the graphs are at most
-        ``step_graph_bound(step_chunks)``. FGK (kernel-bound, one launch),
-        ``step_chunks`` None (every input a step of its own count) and the
-        CPU run eagerly, without synchronising."""
+        ``step_graph_bound(step_chunks)``. FGK runs eagerly: its step is
+        a few launches around one chain-bound kernel of tens of ms (35 ms
+        a 256-chunk step of 64 KiB chunks of gradients with noise and a
+        random block, on an H100), whose launch a graph replay would not
+        shorten. ``step_chunks`` None (every input a step of its own
+        count) and the CPU run eagerly too, without synchronising."""
         cfg = self.config
         step = functools.partial(
             _encode_step, S=S, chunk_size=cfg.chunk_size, lane=cfg.lane,
@@ -682,7 +690,8 @@ class TorchCodec:
         once; wave 2 copies each canonical step's used payload prefix
         (rounded up by ``_bucket``) and waits once; then the container.
         FGK strips its word rows here (``chunk_bytes``, which
-        synchronises)."""
+        synchronises), inside the span ``fgk strip``, and counts the
+        streams' bits as ``fgk code bits``."""
         cfg = self.config
         n = len(data)
         n_chunks = _cdiv(n, cfg.chunk_size)
@@ -697,10 +706,13 @@ class TorchCodec:
             xf.fence()
             pays = [p[:u] for p, u in zip(pays, used)]
         else:
-            pays = [chunk_bytes(o[0], o[1]) for o in outs]
+            with xf.host_stage("fgk strip"):
+                pays = [chunk_bytes(o[0], o[1]) for o in outs]
         cols = [np.concatenate([m[i].numpy() for m in man])[:n_chunks]
                 for i in range(len(man[0]))]
         meta, rl, car = cols[0], cols[-2], cols[-1]
+        if not canonical and xf.timer is not None:
+            xf.timer.count("fgk code bits", int(meta.sum(dtype=np.int64)))
         with xf.host_stage("payload"):
             payload = b"".join(_words_to_wire(p) for p in pays)
         with xf.host_stage("crc32"):
@@ -1032,19 +1044,26 @@ class TorchCodec:
         on the device, zero past each chunk's stream (and in the rows past
         c1 - c0). Only the payload bytes cross to the device; W is the
         longest stream's words plus one zero word, so a read past any
-        stream reads zeros, as in the JAX package's wider rows."""
+        stream reads zeros, as in the JAX package's wider rows. The row
+        cut (``chunk_words``) is the device span ``fgk rows``, after the
+        upload's ``host staging``; the chunks' bits are counted as ``fgk
+        code bits``."""
+        xf = self._xfer
         offs = hdr["chunk_offs"]
         base = hdr["payload_off"] + int(offs[c0])
         nbytes = int(offs[c1] - offs[c0])
         nb = np.diff(offs[c0:c1 + 1])
-        _, (payload, off, nbt), ready = self._xfer.upload([
+        _, (payload, off, nbt), ready = xf.upload([
             (np.frombuffer(blob, np.uint8, nbytes, base), nbytes,
              torch.uint8),
             (offs[c0:c1] - offs[c0], rows, torch.int64),
             (nb, rows, torch.int64)])
-        self._xfer.wait(ready)
-        return chunk_words(payload, off, nbt,
-                           _cdiv(int(nb.max(initial=0)), 4) + 1)
+        xf.wait(ready)
+        if xf.timer is not None:
+            xf.timer.count("fgk code bits", sum(hdr["chunk_bits"][c0:c1]))
+        n_words = _cdiv(int(nb.max(initial=0)), 4) + 1
+        with xf.device_stage("fgk rows"):
+            return chunk_words(payload, off, nbt, n_words)
 
     def _stage_step(self, blob: bytes, hdr: dict, c0: int, c1: int, S: int):
         """Host -> device transfer of one decode step, without any compute:
