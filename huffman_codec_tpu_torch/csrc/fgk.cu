@@ -30,9 +30,13 @@
 // Design: one thread a chain. A block is one warp and one chunk; lane 0
 // runs the chain alone, with no barrier, shuffle or warp reduction in a
 // tree level, and the other lanes only stage the symbols in and out
-// through shared memory, 1024 at a time. All chunks of a step are resident
-// at once, so a step takes its longest chain: what counts is the clocks of
-// a level. The tree (7.2 KB of shared memory) is three records a slot:
+// through shared memory, 1024 at a time. All chunks of a launch are
+// resident at once, so a launch takes its longest chain: what counts is
+// the clocks of a level. The card holds many launches' blocks at once
+// (fgk_resident_blocks), so the codec runs the launches of one request's
+// steps side by side on streams of their own, and a request takes about
+// its longest chain. The tree (7.2 KB of shared memory) is three records
+// a slot:
 //   rec[s]  the position: parent slot (low 16 bits, -1 at the root) and
 //           side (bit 16: a right child), which a swap leaves in place;
 //   ch[s]   the content: left | right << 16, or kLeaf | symbol at a leaf;
@@ -358,4 +362,22 @@ extern "C" int fgk_decode_launch(const void* words, const void* counts,
       static_cast<const uint32_t*>(words), static_cast<const int*>(counts),
       static_cast<uint8_t*>(out), W, out_len);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The blocks of the FGK kernels the current device holds at once: the
+// blocks an SM holds of the kernel with the larger footprint (the
+// decoder's, whose notes add to the tree and the stage), times the SMs.
+extern "C" int fgk_resident_blocks(int* blocks) {
+  int dev = 0, sms = 0, enc = 0, dec = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &enc, fgk_encode_kernel, 32, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &dec, fgk_decode_kernel, 32, 0);
+  *blocks = (enc < dec ? enc : dec) * sms;
+  return static_cast<int>(err);
 }

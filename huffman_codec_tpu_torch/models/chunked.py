@@ -29,7 +29,9 @@ itself), then the crc32 check. Both run as the JAX package's step
 pipeline (``models/pipeline.py``): every step uploaded and dispatched
 before any is fetched, fetches in waves; on the card each canonical
 encode step is one CUDA graph replay (``encode_step_chunks`` bounds
-their geometries), and each decode step runs launch by launch.
+their geometries), and each decode step runs launch by launch; FGK
+steps, each bound by one serial chain a chunk, run side by side on side
+streams.
 
 Global encode: diff and MNP-5 RLE over the whole input as one stream
 (torch ops; runs cross chunk borders), the stream cut into chunks, the
@@ -71,6 +73,7 @@ chunks at the configured lane, still raced against v1.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import struct
 import zlib
@@ -95,9 +98,11 @@ from huffman_codec_tpu_torch.formats import (
 )
 from huffman_codec_tpu_torch.models.pipeline import (
     ALIGN,
+    SideBySide,
     StepGraph,
     Transfers,
     aligned,
+    side_by_side_width,
 )
 from huffman_codec_tpu_torch.native import runtime
 from huffman_codec_tpu_torch.ops import kernels
@@ -531,7 +536,8 @@ class TorchCodec:
     graphs (9 at ``step_chunks`` 256, none with ``step_chunks`` None)
     whatever sizes and data it sees. Everything else runs launch by
     launch: the decode steps, FGK entropy, the other layouts and
-    adaptive mode."""
+    adaptive mode. The sharded FGK steps of one request run side by side
+    on the codec's side streams (``models/pipeline.SideBySide``)."""
 
     # the v1 race runs only on small inputs (the v1 FGK chain is serial
     # per symbol) whose v3 container is small enough for its fixed costs
@@ -590,12 +596,16 @@ class TorchCodec:
         The adaptive block-size search and the sharded-adaptive steps lie
         in no span. Device spans, between CUDA events, added by the
         timer's ``resolve`` once the work has run: ``device``, the sharded
-        steps' time; ``fgk rows``, an FGK decode's cut of its payload
-        into word rows as it is staged.
+        steps' time (canonical: a span a step; FGK: one span a request,
+        from the fork of its side-by-side steps to their join); ``fgk
+        rows``, an FGK decode's cut of its payload into word rows as it is
+        staged.
         Counters: ``v1 races`` and ``v1 wins`` (``_race_v1``), ``parse
         copied bytes`` (the container's bytes ``_parse`` copies), ``fgk
         code bits`` (the bits of the FGK streams a sharded encode wrote,
-        or a decode staged)."""
+        or a decode staged), ``fgk steps`` (the FGK sharded steps run)
+        and ``fgk steps side by side`` (those queued on a side stream that
+        held no earlier step of the request; on the card only)."""
         return self._xfer.timer
 
     @timer.setter
@@ -629,6 +639,13 @@ class TorchCodec:
         0 at the start). Staged in pinned memory and copied on the copy
         stream; the current stream waits for the copy, the host does
         not."""
+        base, ready = self._stage_upload(arr, c0, c1)
+        self._xfer.wait(ready)
+        return base
+
+    def _stage_upload(self, arr: np.ndarray, c0: int, c1: int):
+        """``_upload_step`` without the wait: (the buffer, the event that
+        marks its copy, None on the CPU)."""
         cs = self.config.chunk_size
         n = len(arr)
         lo, hi = c0 * cs, min(n, c1 * cs)
@@ -637,8 +654,7 @@ class TorchCodec:
             (arr[lo:hi], (c1 - c0) * cs, torch.uint8),
             (np.array([max(0, hi - lo)], np.int32), 1, torch.int32),
             (np.array([carry0], np.uint8), 1, torch.uint8)])
-        self._xfer.wait(ready)
-        return base
+        return base, ready
 
     def _run_encode_step(self, base: torch.Tensor, S: int):
         """``_encode_step`` of an uploaded step of S chunks. Canonical
@@ -649,11 +665,11 @@ class TorchCodec:
         every step is dispatched before any is fetched; S comes from
         ``encode_step_chunks``, so the graphs are at most
         ``step_graph_bound(step_chunks)``. FGK runs eagerly: its step is
-        a few launches around one chain-bound kernel of tens of ms (35 ms
-        a 256-chunk step of 64 KiB chunks of gradients with noise and a
-        random block, on an H100), whose launch a graph replay would not
-        shorten. ``step_chunks`` None (every input a step of its own
-        count) and the CPU run eagerly too, without synchronising."""
+        a few launches around one chain-bound kernel of tens of ms, whose
+        launch a graph replay would not shorten (``dispatch_sharded`` runs
+        FGK's steps side by side, ``_dispatch_fgk``). ``step_chunks`` None
+        (every input a step of its own count) and the CPU run eagerly too,
+        without synchronising."""
         cfg = self.config
         step = functools.partial(
             _encode_step, S=S, chunk_size=cfg.chunk_size, lane=cfg.lane,
@@ -670,18 +686,59 @@ class TorchCodec:
     def dispatch_sharded(self, data: bytes) -> list:
         """The dispatch half of the sharded stream encode: every step of
         ``encode_step_chunks`` chunks staged, uploaded and run
-        (``_run_encode_step``) before any is fetched; nothing here waits
-        for the device once the steps' graphs exist. Returns each step's
-        outputs on the device, for ``fetch_sharded``."""
+        (``_run_encode_step``; FGK: ``_dispatch_fgk``) before any is
+        fetched; nothing here waits for the device once the steps' graphs
+        exist. Returns each step's outputs on the device, for
+        ``fetch_sharded``."""
         cfg = self.config
         arr = np.frombuffer(data, np.uint8)
         n_chunks = _cdiv(len(arr), cfg.chunk_size)
         S = encode_step_chunks(n_chunks, cfg.step_chunks)
+        if cfg.entropy == "fgk":
+            return self._dispatch_fgk(arr, n_chunks, S)
         outs = []
         for k in range(_cdiv(n_chunks, S)):
             base = self._upload_step(arr, k * S, (k + 1) * S)
             with self._xfer.device_stage("device"):
                 outs.append(self._run_encode_step(base, S))
+        return outs
+
+    def _fgk_width(self, S: int) -> int:
+        """FGK steps of S chunks that run side by side on this codec's
+        device: as many as it holds the FGK kernels' blocks of at once."""
+        if not self._xfer.cuda:
+            return 1
+        index = self.device.index
+        return side_by_side_width(kernels.fgk_resident_blocks(
+            torch.cuda.current_device() if index is None else index), S)
+
+    def _dispatch_fgk(self, arr: np.ndarray, n_chunks: int, S: int,
+                      width: int | None = None) -> list:
+        """``dispatch_sharded`` for FGK entropy. A step's device work (the
+        diff, the RLE and ``fgk_encode``: ``_encode_step``) is bound by
+        its longest chain, one thread a chunk, so the steps run side by
+        side (``SideBySide``), ``width`` at once (``_fgk_width`` by
+        default; a test may pass 1), each after its own upload; a request
+        then takes about its longest chain, not the sum of every step's.
+        The device span ``device`` runs on the current stream from the
+        first step's fork to the join."""
+        cfg = self.config
+        xf = self._xfer
+        n_steps = _cdiv(n_chunks, S)
+        width = self._fgk_width(S) if width is None else width
+        outs = []
+        with contextlib.ExitStack() as span:
+            for k in range(n_steps):
+                base, ready = self._stage_upload(arr, k * S, (k + 1) * S)
+                if k == 0:
+                    span.enter_context(xf.device_stage("device"))
+                    run = SideBySide(xf, n_steps, width, "fgk steps")
+                with run.step(k, ready, (base,)):
+                    out = _encode_step(base, S, cfg.chunk_size, cfg.lane,
+                                       cfg.use_diff, "fgk")
+                outs.append(run.hand_back(out))
+            if outs:
+                run.join()
         return outs
 
     def fetch_sharded(self, data: bytes, outs: list) -> bytes:
@@ -1138,20 +1195,37 @@ class TorchCodec:
                                   bool(hdr["flags"] & FLAG_DIFF),
                                   out=out).view(-1)
 
-    def _run_decode(self, hdr: dict, staged: list) -> torch.Tensor:
+    def _run_decode(self, hdr: dict, staged: list,
+                    width: int | None = None) -> torch.Tensor:
         """Every staged step decoded into one (steps * S * chunk_size,)
         uint8 device tensor, without synchronising. Each step runs
         launch by launch (``_decode_step``; no CUDA graph, whose key would
         follow the container's data: its lane stride and code-length
         bucket) and writes its rows straight into its slice of the
-        result."""
+        result. Canonical steps run one after another, each in a device
+        span ``device``. FGK steps, each bound by its longest chain, run
+        side by side (``SideBySide``), ``width`` at once (``_fgk_width``
+        by default; a test may pass 1), after the fork, which follows
+        every step's row cut; their span ``device`` runs from the fork to
+        the join."""
         S = staged[0]["rl"].shape[0] if staged else 0
         cs = hdr["chunk_size"]
+        xf = self._xfer
         out = torch.empty((len(staged) * S, cs), dtype=torch.uint8,
                           device=self.device)
-        for k, st in enumerate(staged):
-            with self._xfer.device_stage("device"):
-                self._decode_step(hdr, st, out[k * S:(k + 1) * S])
+        if _entropy_name(hdr) != "fgk" or not staged:
+            for k, st in enumerate(staged):
+                with xf.device_stage("device"):
+                    self._decode_step(hdr, st, out[k * S:(k + 1) * S])
+            return out.view(-1)
+        width = self._fgk_width(S) if width is None else width
+        with xf.device_stage("device"):
+            run = SideBySide(xf, len(staged), width, "fgk steps")
+            for k, st in enumerate(staged):
+                with run.step(k, held=(out, st["rl"], st["car"],
+                                       st["words"])):
+                    self._decode_step(hdr, st, out[k * S:(k + 1) * S])
+            run.join()
         return out.view(-1)
 
     def run_decode_steps(self, hdr: dict, staged: list):

@@ -25,6 +25,14 @@ kernel wrappers, so the graph adds the launches its capture recorded to
 the wrappers' counts each time, and the capture, which launches nothing,
 takes them back. A capture that fails raises: nothing falls back to eager
 launches.
+
+``SideBySide`` runs the steps of one request side by side on the codec's
+side streams (``Transfers.side_streams``), where a step's launches are
+bound by one serial chain a chunk and leave most of the card empty (FGK
+entropy): each step waits on its own inputs, not on the step before it,
+and the current stream joins every side stream before the request reads
+a result. How many run at once follows from the card
+(``side_by_side_width``).
 """
 
 from __future__ import annotations
@@ -38,6 +46,11 @@ from huffman_codec_tpu_torch.ops import kernels
 
 # bytes every part of an upload is aligned to (the kernels' 16-byte loads)
 ALIGN = 16
+
+# streams drawn at most when the side streams grow: torch hands its
+# streams out round-robin from a pool of 32 a priority, so a draw past
+# that only repeats a stream already held
+SIDE_STREAM_DRAWS = 32
 
 
 def aligned(nbytes: int) -> int:
@@ -56,6 +69,8 @@ class Transfers:
         self.device = device
         self.cuda = device.type == "cuda"
         self._copy_stream = None  # made at the first upload
+        self._side: list[torch.cuda.Stream] = []  # made at first need
+        self._side_drawn = False  # the pool gave every stream it has
         self.timer = None
 
     @property
@@ -63,6 +78,28 @@ class Transfers:
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
         return self._copy_stream
+
+    def side_streams(self, n: int) -> list:
+        """Up to ``n`` side streams of this codec, distinct from each
+        other, from the copy stream and from the current stream; drawn
+        from torch's pool at first need and kept. A draw that repeats a
+        stream already held (or the copy or the current stream) is
+        passed over, so fewer than ``n`` come back once the pool is
+        drawn out."""
+        if len(self._side) < n and not self._side_drawn:
+            held = {self.copy_stream.cuda_stream,
+                    torch.cuda.current_stream(self.device).cuda_stream}
+            held.update(s.cuda_stream for s in self._side)
+            for _ in range(SIDE_STREAM_DRAWS):
+                s = torch.cuda.Stream(self.device)
+                if s.cuda_stream not in held:
+                    held.add(s.cuda_stream)
+                    self._side.append(s)
+                    if len(self._side) == n:
+                        break
+            else:
+                self._side_drawn = True
+        return self._side[:n]
 
     def host_stage(self, name: str):
         return (self.timer.stage(name) if self.timer is not None
@@ -192,3 +229,76 @@ class StepGraph:
                              if after[k] != before[k]}
             kernels.add_launches(self.launches, -1)
         self.graph, self.outs = graph, outs
+
+
+def side_by_side_width(resident_blocks: int, S: int) -> int:
+    """Steps of S chunks (a block each) that run side by side: as many as
+    the card holds the blocks of at once, ``resident_blocks``, and at
+    least one."""
+    return max(1, resident_blocks // S)
+
+
+class SideBySide:
+    """The steps of one request, each on a side stream of the codec: step k
+    on ``streams[k % width]``, so a step past the width waits behind the
+    earlier step on its stream, and no step waits on any other.
+
+    ``step(k, ready, held)`` runs its block on step k's stream. The
+    stream first waits on the fork, an event at the current stream when
+    the request made this object (once a stream), then on ``ready``; each
+    tensor of ``held``, made on another stream, is marked in use on it,
+    so that the caching allocator hands out none of their memory while
+    the step may still read or write it. ``hand_back`` marks a step's
+    outputs in use on the current stream, which reads them after the
+    ``join``: the current stream waits on every side stream used. The
+    host waits on nothing. On the CPU (no streams) each step runs in
+    place.
+
+    The timer counts ``<name>``, the steps run, and, on the card,
+    ``<name> side by side``, the steps queued on a stream that held no
+    earlier step of the request (the first step counts)."""
+
+    def __init__(self, xf: Transfers, n_steps: int, width: int, name: str):
+        self.xf, self.name = xf, name
+        self.streams = (xf.side_streams(min(n_steps, width)) if xf.cuda
+                        else [])
+        self.current = (torch.cuda.current_stream(xf.device) if xf.cuda
+                        else None)
+        self.fork = xf.record()
+        self.used: set[int] = set()
+
+    @contextlib.contextmanager
+    def step(self, k: int, ready=None, held=()):
+        timer = self.xf.timer
+        if timer is not None:
+            timer.count(self.name)
+        if not self.streams:
+            yield
+            return
+        j = k % len(self.streams)
+        s = self.streams[j]
+        if j not in self.used:
+            self.used.add(j)
+            s.wait_event(self.fork)
+            if timer is not None:
+                timer.count(self.name + " side by side")
+        if ready is not None:
+            s.wait_event(ready)
+        for t in held:
+            t.record_stream(s)
+        with torch.cuda.stream(s):
+            yield
+
+    def hand_back(self, tensors):
+        """``tensors`` (None entries pass), marked in use on the current
+        stream; returned as given."""
+        if self.current is not None:
+            for t in tensors:
+                if t is not None:
+                    t.record_stream(self.current)
+        return tensors
+
+    def join(self) -> None:
+        """The current stream waits on every side stream used."""
+        for j in sorted(self.used):
+            self.current.wait_stream(self.streams[j])

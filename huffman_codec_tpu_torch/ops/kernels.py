@@ -24,6 +24,8 @@ them as int32 holding the same bits.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import threading
 
 import torch
@@ -691,6 +693,23 @@ def fgk_decode(words: torch.Tensor, counts: torch.Tensor,
 
 
 fgk_decode.launches = 0
+
+
+@functools.cache
+def fgk_resident_blocks(index: int) -> int:
+    """Blocks of the FGK kernels (one a chunk) that CUDA device ``index``
+    holds at once: the occupancy of the kernel with the larger footprint
+    times the SMs (``fgk_resident_blocks`` of ``csrc/fgk.cu``). Read once
+    a device."""
+    fn = _build.library("fgk").fgk_resident_blocks
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = fn(ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"fgk_resident_blocks: CUDA error {err}")
+    return blocks.value
 
 
 KERNELS = (rle_diff_encode, histogram256, lane_pack, repad_words,

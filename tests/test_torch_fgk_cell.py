@@ -13,10 +13,12 @@ steps.
   the ``lsb`` control (the lowest input bit cleared) more than 0.
 * The decode equals the input.
 * ``fgk code bits`` of an encode and of a decode equal the container's
-  code bits (``v3_fgk.sizes``); an encode records ``fgk strip``.
+  code bits (``v3_fgk.sizes``); an encode records ``fgk strip``; both
+  count their ``fgk steps``.
 * The canonical codec of the same configuration records the spans and
   counters it did before FGK had any, and no ``fgk`` name.
-* On a card, a decode records the device span ``fgk rows``.
+* On a card, a decode records the device span ``fgk rows``, and both
+  count ``fgk steps side by side``.
 """
 
 import numpy as np
@@ -38,7 +40,8 @@ SEED = 2**31 + 4321
 
 ENCODE = {"host staging", "payload", "crc32", "container"}
 DECODE = {"parse", "parse copied bytes", "host staging", "bytes", "crc32"}
-FGK = {"fgk strip", "fgk code bits"}
+FGK = {"fgk strip", "fgk code bits", "fgk steps"}
+STEPS = 4
 
 
 def _cfg(entropy: str = "fgk") -> dict:
@@ -115,12 +118,14 @@ def test_fgk_spans_recorded(made, kind):
     if kind == "decode":
         _, t = _timed(codec, codec.decode, blob)
         # "fgk rows" is a device span: CUDA events, so not on the CPU
-        assert set(t.stages) == DECODE | {"fgk code bits"}
+        assert set(t.stages) == DECODE | {"fgk code bits", "fgk steps"}
     else:
         assert set(t.stages) == ENCODE | FGK
         assert t.stages["fgk strip"] > 0
-    assert t.counters == ({"fgk code bits"} if kind == "encode" else
-                          {"fgk code bits", "parse copied bytes"})
+    assert t.stages["fgk steps"] == STEPS
+    assert t.counters == ({"fgk code bits", "fgk steps"} if kind == "encode"
+                          else {"fgk code bits", "fgk steps",
+                                "parse copied bytes"})
 
 
 @pytest.mark.parametrize("kind", ["encode", "decode"])
@@ -148,9 +153,13 @@ def test_fgk_rows_on_the_card(made, cuda):
     codec = TorchCodec(CodecConfig(**cfg), device=cuda)
     blob, t = _timed(codec, codec.encode, x.tobytes())
     assert _judge(blob, x, cfg) == 0
-    assert set(t.stages) == ENCODE | FGK | {"device"}
+    side = "fgk steps side by side"
+    assert set(t.stages) == ENCODE | FGK | {"device", side}
+    assert t.stages["fgk steps"] == t.stages[side] == STEPS
     out, t = _timed(codec, codec.decode, blob)
     assert out == x.tobytes()
-    assert set(t.stages) == DECODE | {"device", "fgk rows", "fgk code bits"}
+    assert set(t.stages) == DECODE | {"device", "fgk rows", "fgk code bits",
+                                      "fgk steps", side}
+    assert t.stages["fgk steps"] == t.stages[side] == STEPS
     assert t.stages["fgk rows"] > 0
     assert t.stages["fgk code bits"] == v3_fgk.sizes(blob)["code_bits"]

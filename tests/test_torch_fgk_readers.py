@@ -117,6 +117,28 @@ def test_none_without_what_it_reads(name, run):
     assert cells.metric_reader(name)(run()) is None
 
 
+@pytest.mark.parametrize("kind", ["encode", "decode"])
+@pytest.mark.parametrize("counters,share", [
+    ({"fgk steps": 8, "fgk steps side by side": 8}, 100.0),
+    ({"fgk steps": 8, "fgk steps side by side": 2}, 25.0),
+    ({"fgk steps": 4}, 0.0),  # the CPU's steps, none on a side stream
+    ({}, None),  # a program without the counters
+    ({"fgk steps": 0}, None)])
+def test_side_by_side_share(kind, counters, share):
+    other = "decode" if kind == "encode" else "encode"
+    stages = {kind: {"payload": 1.0, **counters},
+              other: {"fgk steps": 3, "fgk steps side by side": 1}}
+    got = cells.metric_reader(f"fgk_side_by_side_share.{kind}")(
+        _run(stages=stages, trace=False))
+    assert got == (None if share is None else pytest.approx(share))
+
+
+def test_side_by_side_share_reported_in_the_cell():
+    names = [m["name"] for m in cells.find_cell(CELL).per_layer]
+    assert {"fgk_side_by_side_share.encode",
+            "fgk_side_by_side_share.decode"} <= set(names)
+
+
 def test_the_cell_is_found():
     cell = cells.find_cell(CELL)
     assert cell.chips == 1 and cell.mix == cells.find_cell(

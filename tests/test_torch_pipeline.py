@@ -170,3 +170,22 @@ def test_stage_split_names_on_the_cpu():
     assert set(tc.timer.stages) == {"host staging", "payload", "crc32",
                                     "container", "parse", "bytes",
                                     "parse copied bytes"}
+
+
+@pytest.mark.parametrize("entropy", ["canonical", "fgk"])
+def test_fgk_steps_counted_on_the_cpu(entropy):
+    """A multi-step FGK encode and decode count their ``fgk steps`` and no
+    step side by side (the CPU has no streams; each step runs in place),
+    with the container unchanged; a canonical round trip counts no
+    ``fgk steps``."""
+    jcfg = _jcfg(2, True, entropy)
+    tc = _port(jcfg)
+    tc.timer = StageTimer()
+    blob = tc.encode(DATA)
+    assert blob == jch.TPUCodec(jcfg).encode(DATA)
+    enc = tc.timer.stages
+    tc.timer = StageTimer()
+    assert tc.decode(blob) == DATA
+    for st in (enc, tc.timer.stages):
+        assert not st.get("fgk steps side by side")
+        assert st.get("fgk steps") == (4 if entropy == "fgk" else None)
