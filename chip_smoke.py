@@ -55,9 +55,8 @@ FGK entropy (``entropy="fgk"``) in every layout and the device
 ``V1Codec``: holds the two FGK kernels against their plain versions (the
 main step's RLE streams, diff on, cut to 2048 symbols, with the FGK edge
 batch of ``huffman_codec_tpu_torch/edge_cases.py``); in a stress pass over
-32 seeds of the successor streams and the edge rows, against the first
-design of the kernels (``kernel_variants/fgk_warp.cu``, built beside the
-package's) and the host runtime's v1 encoder; at the main path's
+32 seeds of the successor streams and the edge rows, round trips and the
+host runtime's v1 encoder; at the main path's
 shapes, where the plain loop (once a symbol) cannot run, against a second
 oracle: the encoder, for codes past 32 bits and for every chunk of a full
 step with diff and without, against the host runtime's v1 encoder (RLE
@@ -69,9 +68,7 @@ inputs, a sharded-adaptive input of 16 bands and a 5-row tail, and
 ``V1Codec`` on 256 KiB in the four pipeline configs (bytes equal to the
 host runtime's, decoded on the device and by the host runtime); checks
 containers against the plain path run on the CPU on small inputs, and
-times the kernels (beside their bound and the latency floor of their
-serial chain, from one dependent shared-memory access measured in the run
-by ``kernel_variants/smem_chase.cu``) and the device encode and decode.
+times the kernels (beside their bound) and the device encode and decode.
 
 The command line (``python -m huffman_codec_tpu_torch``) on the card,
 with its device left at the default: ``cli.main`` compresses the 64 MiB
@@ -164,7 +161,6 @@ result, when there is no GPU or any phase fails.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import functools
 import hashlib
 import io
@@ -299,7 +295,8 @@ def kernel_chain(K, chunks, in_lens, carries, use_diff, errs, shapes,
                  lane=LANE):
     """Run the six kernels as the main path chains them, each held against
     its plain version on the same inputs (tolerance 0: integer codec)."""
-    from huffman_codec_tpu_torch.models.chunked import _sharded_cap, _strip_payload
+    from huffman_codec_tpu_torch.models.entropy import (
+        CANONICAL, _strip_payload)
     from huffman_codec_tpu_torch.ops.canonical import assign_codes, build_lengths_pm
 
     def sync():  # surface a fault of the launch just made, where it happened
@@ -307,7 +304,7 @@ def kernel_chain(K, chunks, in_lens, carries, use_diff, errs, shapes,
             torch.cuda.synchronize()
 
     C, n = chunks.shape
-    cap = _sharded_cap(n, "canonical", lane)
+    cap = CANONICAL.cap(n, lane)
     st, rl = K.rle_diff_encode(chunks, in_lens, carries, use_diff, cap)
     sync()
     pst, prl = K.rle_diff_encode_plain(chunks, in_lens, carries, use_diff, cap)
@@ -399,9 +396,9 @@ def encode_edges(K, dev, errs):
     empty, one-symbol and partial lanes."""
     from huffman_codec_tpu_torch.edge_cases import (
         pack_edge_rows, rle_encode_edge_rows)
-    from huffman_codec_tpu_torch.models.chunked import _sharded_cap
+    from huffman_codec_tpu_torch.models.entropy import CANONICAL
 
-    cap = _sharded_cap(CS, "canonical", LANE)
+    cap = CANONICAL.cap(CS, LANE)
     ch, ln, car = (torch.from_numpy(a).to(dev)
                    for a in rle_encode_edge_rows(CS, SEED + 31))
     zero = torch.zeros_like(car)
@@ -481,9 +478,9 @@ def decode_edges(K, dev, errs):
     and 4096 (the deepest, 26 bits, in the 31 bucket)."""
     from huffman_codec_tpu_torch.edge_cases import (
         lane_edge_rows, pack_lane_rows, rle_edge_rows)
-    from huffman_codec_tpu_torch.models.chunked import _sharded_cap
+    from huffman_codec_tpu_torch.models.entropy import CANONICAL
 
-    cap = _sharded_cap(CS, "canonical", LANE)
+    cap = CANONICAL.cap(CS, LANE)
     s, ln, car = (torch.from_numpy(a).to(dev)
                   for a in rle_edge_rows(cap, SEED + 21))
     for out_len in (128, CS, 4 * CS):  # 128: every row cut short
@@ -641,14 +638,17 @@ def global_chain(K, cfg, x, whole, errs):
     against its plain version on the same inputs (tolerance 0). Returns
     the tensors the timings reuse."""
     from huffman_codec_tpu_torch.models.chunked import (
-        _SINGLE_MAX, _chunkify, _global_geometry, _strip_payload)
+        _chunkify, _global_geometry)
+    from huffman_codec_tpu_torch.models.entropy import (
+        _SINGLE_MAX, _strip_payload, lookup)
     from huffman_codec_tpu_torch.ops.canonical import assign_codes, build_lengths_pm
     from huffman_codec_tpu_torch.ops.diff import diff_apply
     from huffman_codec_tpu_torch.ops.rle import rle_encode
 
     dev = x.device
     n = x.shape[0]
-    cs, lane, max_chunks = _global_geometry(cfg, n, whole)
+    cs, lane, max_chunks = _global_geometry(cfg, n, whole,
+                                            lookup(cfg.entropy))
     xs = diff_apply(x) if cfg.use_diff else x
     stream, total = rle_encode(
         xs[None, :], torch.tensor([n], dtype=torch.int32, device=dev),
@@ -699,8 +699,8 @@ def global_chain(K, cfg, x, whole, errs):
 def stage_split(K, g):
     """Device time of each stage of the whole-file candidate and of its
     decode, on the tensors ``global_chain`` left (diff on)."""
-    from huffman_codec_tpu_torch.models.chunked import (
-        _decode_stream_tail, _strip_payload)
+    from huffman_codec_tpu_torch.models.chunked import _decode_stream_tail
+    from huffman_codec_tpu_torch.models.entropy import _strip_payload
     from huffman_codec_tpu_torch.ops.canonical import assign_codes, build_lengths_pm
     from huffman_codec_tpu_torch.ops.diff import diff_apply
     from huffman_codec_tpu_torch.ops.rle import rle_encode
@@ -734,7 +734,7 @@ def fat_edge_batch(K, dev, errs):
     lane 32768 on ``fat_lane_rows`` of
     ``huffman_codec_tpu_torch/edge_cases.py``."""
     from huffman_codec_tpu_torch.edge_cases import fat_lane_rows
-    from huffman_codec_tpu_torch.models.chunked import _strip_payload
+    from huffman_codec_tpu_torch.models.entropy import _strip_payload
     from huffman_codec_tpu_torch.ops.canonical import assign_codes, build_lengths_pm
 
     lane = 8192
@@ -1076,8 +1076,8 @@ def sharded_adapt_chain(K, A, codec, xd, bs, cap, errs):
     of the resident input in one call, as ``run_sharded_adapt_stage`` and
     ``run_adapt_bands`` chain them, each kernel held against its plain
     version at that shape (tolerance 0). Returns the kernels' times."""
-    from huffman_codec_tpu_torch.models.chunked import (
-        _band_winner_order, _strip_payload)
+    from huffman_codec_tpu_torch.models.chunked import _band_winner_order
+    from huffman_codec_tpu_torch.models.entropy import _strip_payload
     from huffman_codec_tpu_torch.ops.canonical import assign_codes, build_lengths_pm
     from huffman_codec_tpu_torch.ops.diff import diff_apply
 
@@ -1201,8 +1201,8 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
     launch counts of the 64 MiB sharded-adaptive round trip, the rows of
     the tile mode and of the group walk for the kernels line)."""
     from huffman_codec_tpu_torch.edge_cases import walk_serial
-    from huffman_codec_tpu_torch.models.chunked import (
-        _band_winner_order, _sharded_cap)
+    from huffman_codec_tpu_torch.models.chunked import _band_winner_order
+    from huffman_codec_tpu_torch.models.entropy import CANONICAL
     from huffman_codec_tpu_torch.ops import adapt as A
     from huffman_codec_tpu_torch.ops.canonical import (
         canonical_decode_batch, canonical_encode_batch)
@@ -1211,7 +1211,7 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
         rle_classify, rle_encoded_size, rle_max_encoded_len)
 
     dev = torch.device("cuda")
-    cap = _sharded_cap(CS, "canonical", LANE)
+    cap = CANONICAL.cap(CS, LANE)
     n_in = x.size
 
     # -- the tile mode against its plain version ------------------------------
@@ -1656,68 +1656,7 @@ def adaptive_path(K, TorchCodec, CodecConfig, x, errs):
 
 # the FGK phase: a chunk's symbols in the plain comparison
 FGK_PLAIN_SYMBOLS = 2048
-# the probe of one dependent shared-memory access, the unit of the FGK
-# kernels' serial chain: a cycle of this many slots, chased this many steps
-# and twice as many
-CHASE_SOURCE = Path(__file__).resolve().parent / "kernel_variants" / \
-    "smem_chase.cu"
-CHASE_SLOTS = 1024
-CHASE_STEPS = 1 << 20
-# the first design of the FGK kernels (a warp a chunk), which the stress
-# pass holds the package's to
-WARP_SOURCE = Path(__file__).resolve().parent / "kernel_variants" / \
-    "fgk_warp.cu"
 FGK_STRESS_SEEDS = 32
-
-
-def start_probe_build(_build, source: Path):
-    """Start nvcc on a source of ``kernel_variants/`` beside the kernels'
-    build; returns (process, library path)."""
-    out = _build.BUILD_DIR / "probe" / f"{source.stem}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
-           str(source)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), out
-
-
-def probe_library(build, what: str) -> ctypes.CDLL:
-    proc, out = build
-    text, _ = proc.communicate()
-    if proc.returncode:
-        raise RuntimeError(f"{what} did not build:\n{text}")
-    return ctypes.CDLL(str(out))
-
-
-def shared_access(build) -> dict:
-    """One dependent shared-memory access on this card, measured: a thread
-    chases a random cycle of ``CHASE_SLOTS`` slots ``CHASE_STEPS`` and
-    twice as many steps; the time difference over the extra steps (CUDA
-    events) is an access's ns, clock64 over the longer chase its cycles."""
-    fn = probe_library(build, "smem_chase.cu").smem_chase_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    order = np.random.default_rng(SEED).permutation(CHASE_SLOTS)
-    nxt = np.empty(CHASE_SLOTS, np.int32)
-    nxt[order] = np.roll(order, -1)
-    nxt_d = torch.from_numpy(nxt).cuda()
-    res = torch.zeros(2, dtype=torch.int64, device="cuda")
-
-    def run(steps):
-        err = fn(nxt_d.data_ptr(), res.data_ptr(), CHASE_SLOTS, steps,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"smem_chase launch failed: cudaError {err}")
-    t1 = cuda_ms(lambda: run(CHASE_STEPS), reps=3, warm=1)
-    t2 = cuda_ms(lambda: run(2 * CHASE_STEPS), reps=3, warm=1)
-    torch.cuda.synchronize()
-    cycles = int(res[0]) / (2 * CHASE_STEPS)
-    ns = (t2 - t1) * 1e6 / CHASE_STEPS
-    log(f"one dependent shared-memory access: {ns:.3f} ns, {cycles:.2f} "
-        f"SM cycles (a {CHASE_SLOTS}-slot cycle chased {CHASE_STEPS} and "
-        f"{2 * CHASE_STEPS} steps: {t1:.3f} / {t2:.3f} ms)")
-    return {"ns": ns, "cycles": cycles}
 
 
 def fgk_ops(bits: int) -> int:
@@ -1730,26 +1669,17 @@ def fgk_ops(bits: int) -> int:
     return 8 * bits
 
 
-def fgk_bound(nbytes: int, bits: int, max_bits: int, access: dict) -> dict:
-    """The bound of an FGK kernel call and its chain's latency floor: the
-    longest chunk's levels (about its code bits, climbed twice: the code
-    and the update) times one dependent shared-memory access as
-    ``shared_access`` measured it."""
+def fgk_bound(nbytes: int, bits: int) -> dict:
+    """The bound of an FGK kernel call."""
     bound, by = bound_of(nbytes, fgk_ops(bits))
-    floor = 2 * max_bits * access["ns"] * 1e-6
-    return {"bound_ms": bound, "bound_by": by, "latency_floor_ms": floor,
-            "shared_access_ns": access["ns"],
-            "shared_access_cycles": access["cycles"],
-            "binds": "latency floor" if floor > bound else by}
+    return {"bound_ms": bound, "bound_by": by}
 
 
-def fgk_stress(K, warp: ctypes.CDLL, dev) -> None:
+def fgk_stress(K, dev) -> None:
     """The FGK stress pass: for each of ``FGK_STRESS_SEEDS`` seeds, the
     successor streams of ``edge_cases.fgk_successor_streams`` (MNP-5 coded
     by the host runtime, as v1 codes them) and the FGK edge rows in one
-    batch, through the package's kernels and the first design's
-    (``fgk_warp.cu``): the encoders' words and bits and the decoders'
-    output on the package's words equal, the round trip exact, and every
+    batch, through the package's kernels: the round trip exact, and every
     successor stream's words equal to the host runtime's v1 body. Any
     mismatch fails the run."""
     from huffman_codec_tpu_torch.edge_cases import (fgk_edge_rows,
@@ -1758,14 +1688,7 @@ def fgk_stress(K, warp: ctypes.CDLL, dev) -> None:
     from huffman_codec_tpu_torch.ops.fgk import n_words_for
     from huffman_codec_tpu_torch.ops.pack import chunk_bytes
 
-    enc, dcd = warp.fgk_encode_launch, warp.fgk_decode_launch
-    enc.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p]
-    dcd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p]
-    enc.restype = dcd.restype = ctypes.c_int
-    sid = torch.cuda.current_stream().cuda_stream
-    bad = {"vs first design": 0, "round trip": 0, "vs host v1": 0}
+    bad = {"round trip": 0, "vs host v1": 0}
     n_rows = n_streams = 0
     t0 = time.perf_counter()
     for seed in range(FGK_STRESS_SEEDS):
@@ -1783,16 +1706,7 @@ def fgk_stress(K, warp: ctypes.CDLL, dev) -> None:
         C, nw = xr.shape[0], n_words_for(n)
         w, b = K.fgk_encode(xr, ln, nw)
         d = K.fgk_decode(w, ln, n)
-        ww, wb, wd = (torch.empty_like(t) for t in (w, b, d))
-        for err in (enc(xr.data_ptr(), ln.data_ptr(), ww.data_ptr(),
-                        wb.data_ptr(), C, n, nw, sid),
-                    dcd(w.data_ptr(), ln.data_ptr(), wd.data_ptr(), C, nw, n,
-                        sid)):
-            if err:
-                raise RuntimeError(f"fgk_warp.cu: CUDA error {err}")
         torch.cuda.synchronize()
-        bad["vs first design"] += int(((ww != w).any(1) | (wb != b)
-                                       | (wd != d).any(1)).sum())
         valid = torch.arange(n, device=dev)[None, :] < ln[:, None]
         bad["round trip"] += int((d != torch.where(valid, xr, 0)).any(1)
                                  .sum())
@@ -1804,25 +1718,25 @@ def fgk_stress(K, warp: ctypes.CDLL, dev) -> None:
         n_streams += len(streams)
     n_bad = sum(bad.values())
     log(f"fgk stress: {FGK_STRESS_SEEDS} seeds, {n_rows} rows ({n_streams} "
-        f"successor streams, the rest FGK edge rows), the package's kernels "
-        f"against the first design (fgk_warp.cu) and the host runtime's v1 "
-        f"encoder: {n_bad} mismatches {bad} "
+        f"successor streams, the rest FGK edge rows), the package's kernels' "
+        f"round trips and the host runtime's v1 encoder: {n_bad} mismatches "
+        f"{bad} "
         f"({time.perf_counter() - t0:.1f} s)")
     if n_bad:
         raise AssertionError(f"fgk stress: {n_bad} mismatches {bad}")
 
 
-def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access, warp):
+def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs):
     """FGK entropy in every layout and the device V1Codec: the two FGK
-    kernels against their plain versions, a second oracle (the host
-    runtime's v1 encoder) and, in the stress pass, their first design
-    (``warp``, the library of ``fgk_warp.cu``), counted round trips,
+    kernels against their plain versions and a second oracle (the host
+    runtime's v1 encoder, in the stress pass too), counted round trips,
     containers against the CPU plain path, timings. Returns (the launch counts of the sharded FGK
     round trips, the kernels' rows, the launch counts of V1Codec's four
     configs)."""
     from huffman_codec_tpu_torch.edge_cases import fgk_deep_row, fgk_edge_rows
-    from huffman_codec_tpu_torch.models.chunked import (
-        _dense_payload, _encode_sharded_stage)
+    from huffman_codec_tpu_torch.models.chunked import encode_sharded_stage
+    from huffman_codec_tpu_torch.models.entropy import lookup
+    from huffman_codec_tpu_torch.models.pipeline import Transfers
     from huffman_codec_tpu_torch.native import runtime
     from huffman_codec_tpu_torch.ops.fgk import n_words_for
     from huffman_codec_tpu_torch.ops.pack import chunk_bytes
@@ -1878,7 +1792,7 @@ def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access, warp):
     log(f"fgk deep row ({deep.size} symbols, fresh codes of 33 bits): "
         "kernel stream == host runtime's v1 body, decodes exactly")
     del rows, w, pw, d, pd, st
-    fgk_stress(K, warp, dev)
+    fgk_stress(K, dev)
 
     # -- a full step against the host runtime's v1 encoder, diff off and on.
     #    RLE restarts every chunk, so a chunk's FGK stream is the v1 body of
@@ -1898,11 +1812,16 @@ def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access, warp):
         return (torch.frombuffer(bytearray(b"".join(body)), dtype=torch.uint8),
                 torch.tensor(counts, dtype=torch.int32))
 
-    words, bits, _, rl0, _ = _encode_sharded_stage(
-        flat, STEP * CS, 0, False, CS, STEP, LANE, "fgk")
+    fgk, xf = lookup("fgk"), Transfers(dev)
+
+    def strip(words, bits):  # FGK's payload wave: the streams' bytes
+        return fgk.payloads(xf, [words], [bits], [None])[0][0]
+
+    words, bits, _, rl0, _ = encode_sharded_stage(
+        flat, STEP * CS, 0, False, CS, STEP, LANE, fgk)
     want_pay, want_rl = v1_oracle(xs)
-    same("fgk_encode.full_step_vs_v1", _dense_payload(words, bits, "fgk")
-         .cpu(), want_pay, errs)
+    same("fgk_encode.full_step_vs_v1", strip(words, bits).cpu(), want_pay,
+         errs)
     same("fgk_encode.full_step_rle_len_vs_v1", rl0.cpu(), want_rl, errs)
     st0, rls = K.rle_diff_encode(step, full, car, True, cap)
     n_words = n_words_for(cap)
@@ -1915,7 +1834,7 @@ def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access, warp):
     sum_bits, max_bits = int(fb.sum()), int(fb.max())
     sum_rl = int(rls.sum())
     enc_bound = fgk_bound(sum_rl + 4 * STEP + 4 * STEP * n_words + 4 * STEP,
-                          sum_bits, max_bits, access)
+                          sum_bits)
     # the plain loop runs once a symbol of the longest row for the whole
     # batch: its time at the full step, from the reduced run's rate
     plain_full_s = (plain_enc_ms + plain_dec_ms) / int(lens.max()) * \
@@ -1924,10 +1843,9 @@ def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access, warp):
         f"stream and rle_len == the host runtime's v1_compress of its "
         f"(diffed) bytes; fgk_encode {enc_ms:.3f} ms a step (diff on, "
         f"{sum_rl} symbols, {sum_bits} bits), bound "
-        f"{enc_bound['bound_ms']:.4f} ms by {enc_bound['bound_by']}, latency "
-        f"floor {enc_bound['latency_floor_ms']:.3f} ms ({max_bits} bits in "
-        f"the longest chunk); the plain loop would take about "
-        f"{plain_full_s:.0f} s for one encode and decode of it "
+        f"{enc_bound['bound_ms']:.4f} ms by {enc_bound['bound_by']} "
+        f"({max_bits} bits in the longest chunk); the plain loop would take "
+        f"about {plain_full_s:.0f} s for one encode and decode of it "
         f"({int(rls.max())} symbols in the longest chunk)")
     # the same step without diff: about 2.6 times the code bits, so the two
     # times split a tree level's cost from a symbol's
@@ -1980,9 +1898,9 @@ def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access, warp):
         for k in range(n_rt // (STEP * CS)):
             seg = xd[k * STEP * CS:(k + 1) * STEP * CS]
             carry = int(x[k * STEP * CS - 1]) if k else 0
-            a, meta, _, _, _ = _encode_sharded_stage(
-                seg, STEP * CS, carry, True, CS, STEP, LANE, "fgk")
-            outs.append(_dense_payload(a, meta, "fgk"))
+            a, meta, _, _, _ = encode_sharded_stage(
+                seg, STEP * CS, carry, True, CS, STEP, LANE, fgk)
+            outs.append(strip(a, meta))
         return outs
     dev_enc_ms = median_ms(enc, reps=3)
     hdr, staged = codec.stage_decode_steps(blobs[True])
@@ -1994,7 +1912,7 @@ def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access, warp):
                      reps=3, warm=1)
     dbits = hdr["chunk_bits"][:STEP]
     dec_bound = fgk_bound(s0["words"].numel() * 4 + 4 * STEP + STEP * cap,
-                          int(sum(dbits)), int(max(dbits)), access)
+                          int(sum(dbits)))
     # the decoder at the main path's shapes (the first step's staged word
     # rows) against the step's RLE streams, diff on and off
     same("fgk_decode.full_step_diff",
@@ -2009,8 +1927,7 @@ def fgk_path(K, TorchCodec, V1Codec, CodecConfig, x, errs, access, warp):
         f"({dev_enc_ms:.1f} ms / {n_rt} B), decode "
         f"{n_rt / dev_dec_ms / 1e3:.2f} MB/s ({dev_dec_ms:.1f} ms); "
         f"fgk_decode {dec_ms:.3f} ms a step (words {tuple(s0['words'].shape)}"
-        f"), bound {dec_bound['bound_ms']:.4f} ms by {dec_bound['bound_by']}, "
-        f"latency floor {dec_bound['latency_floor_ms']:.3f} ms")
+        f"), bound {dec_bound['bound_ms']:.4f} ms by {dec_bound['bound_by']}")
     del xd, staged, s0, s_off, streams
 
     # -- global FGK at 256 KiB and 2.5 MiB; sharded-adaptive FGK on 16 bands
@@ -2369,6 +2286,7 @@ def mesh_run(M, mesh, data: torch.Tensor, length: int, bs=None):
     adaptive search, the encode at ``bs`` (the search's pick when None)
     and its decode, in bands of the sharded-adaptive cell. Returns
     ({output name: tensor}, the block size)."""
+    from huffman_codec_tpu_torch.models.entropy import lookup
     from huffman_codec_tpu_torch.ops.adapt import candidate_sizes
     from huffman_codec_tpu_torch.ops.fgk import n_words_for
 
@@ -2376,7 +2294,7 @@ def mesh_run(M, mesh, data: torch.Tensor, length: int, bs=None):
     for key, diff, ent in (("canonical", True, "canonical"),
                            ("canonical-nodiff", False, "canonical"),
                            ("fgk", True, "fgk")):
-        nw = n_words_for(M.sharded_cap(CS, ent, LANE))
+        nw = n_words_for(lookup(ent).cap(CS, LANE))
         a, meta, tab, rl, car = M.distributed_encode_step(
             data, length, mesh, CS, nw, diff, ent, LANE)
         out.update({f"{key}.a": a, f"{key}.meta": meta,
@@ -2413,6 +2331,7 @@ def mesh_plain(K, M, out: dict, xd: torch.Tensor, length: int, bs: int,
     plain FGK loop runs once a symbol: far too slow at this size).
     Tolerance 0: integer codec."""
     from huffman_codec_tpu_torch.models.chunked import _band_winner_order
+    from huffman_codec_tpu_torch.models.entropy import CANONICAL
     from huffman_codec_tpu_torch.native import runtime
     from huffman_codec_tpu_torch.ops.canonical import (
         assign_codes, build_lengths_pm)
@@ -2441,7 +2360,7 @@ def mesh_plain(K, M, out: dict, xd: torch.Tensor, length: int, bs: int,
     in_lens = (length - torch.arange(C, device=dev, dtype=torch.int64) * CS
                ).clamp(0, CS).to(torch.int32)
     car = torch.cat([chunks.new_zeros(1), chunks[:-1, -1]])
-    cap = M.sharded_cap(CS, "canonical", LANE)
+    cap = CANONICAL.cap(CS, LANE)
     for key, diff in (("canonical", True), ("canonical-nodiff", False)):
         st, rl = K.rle_diff_encode_plain(chunks, in_lens, car, diff, cap)
         same(f"rle_diff_encode.mesh_{key}_rle_lens", out[f"{key}.rle_lens"],
@@ -2465,7 +2384,7 @@ def mesh_plain(K, M, out: dict, xd: torch.Tensor, length: int, bs: int,
     st, tot = K.rle_diff_encode_plain(
         win, torch.full((nb,), w * bh, dtype=torch.int32, device=dev),
         torch.zeros(nb, dtype=torch.uint8, device=dev), False,
-        M.sharded_cap(w * bh, "canonical", LANE), bs * bs)
+        CANONICAL.cap(w * bh, LANE), bs * bs)
     same(f"{K.TILE_MODE}.mesh_adapt_totals", out["adapt.totals"], tot, errs)
     pack("adapt", st, tot)
     del st, win
@@ -2489,36 +2408,40 @@ def mesh_plain(K, M, out: dict, xd: torch.Tensor, length: int, bs: int,
     same("fgk_encode.mesh_carries", out["fgk.carries"], car, errs)
 
 
+def wire_payload(codec, kept, meta) -> bytes:
+    """The wire bytes of a stage's payload as its coder keeps it
+    (``entropy.keep``), through the coder's payload wave and wire format,
+    as ``TorchCodec.fetch_sharded`` makes them."""
+    ent = codec.entropy
+    pays, landed = ent.payloads(codec._xfer, [kept], [meta], [meta.cpu()])
+    codec._xfer.wait_host(landed)
+    return ent.wire(pays[0])
+
+
 def mesh_container(TorchCodec, CodecConfig, out: dict, key: str,
                    data: bytes, bs: int):
     """The v3 container assembled from the mesh outputs ``key`` of a whole
     input (no partial tail), the way ``TorchCodec.encode`` assembles its
     steps. Returns (the codec of that config, the container)."""
-    from huffman_codec_tpu_torch.models.chunked import (
-        _chunk_bits, _dense_payload, _wire_payload)
-
-    ent = "fgk" if key == "fgk" else "canonical"
     adapt = key == "adapt"
     codec = TorchCodec(CodecConfig(
         use_diff=key != "canonical-nodiff", use_adapt=adapt,
-        width=MESH_WIDTH, chunk_size=CS, lane=LANE, entropy=ent,
-        layout="sharded"))
+        width=MESH_WIDTH, chunk_size=CS, lane=LANE,
+        entropy="fgk" if key == "fgk" else "canonical", layout="sharded"))
+    ent = codec.entropy
     meta = out[f"{key}.meta"]
-    rl, car, meta_np = (out[k].cpu().numpy() for k in (
-        "adapt.totals" if adapt else f"{key}.rle_lens", f"{key}.carries",
-        f"{key}.meta"))
-    canonical = ent == "canonical"
+    rl, car = (out[k].cpu().numpy() for k in (
+        "adapt.totals" if adapt else f"{key}.rle_lens", f"{key}.carries"))
+    cols = [out[k].cpu().numpy() for k in (f"{key}.meta", f"{key}.tables")
+            if k in out]
     adapt_meta = (MESH_WIDTH, len(data) // MESH_WIDTH, bs,
                   out["adapt.dirs"].cpu().numpy().reshape(-1),
                   out["adapt.tile_lens"].cpu().numpy().reshape(-1),
                   False) if adapt else None
     blob = codec._container(
-        _wire_payload(_dense_payload(out[f"{key}.a"], meta, ent), meta,
-                      ent),
-        len(data), int(rl.sum()), _chunk_bits(meta_np, ent),
-        out[f"{key}.tables"].cpu().numpy() if canonical else None,
-        meta_np if canonical else None, (rl, car), zlib.crc32(data),
-        adapt_meta=adapt_meta)
+        wire_payload(codec, ent.keep(out[f"{key}.a"], meta), meta),
+        len(data), int(rl.sum()), *ent.manifest(*cols), (rl, car),
+        zlib.crc32(data), adapt_meta=adapt_meta)
     return codec, blob
 
 
@@ -2652,7 +2575,7 @@ def mesh_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict) -> dict:
     counts."""
     import torch.distributed as dist
 
-    from huffman_codec_tpu_torch.models.chunked import _encode_sharded_stage
+    from huffman_codec_tpu_torch.models.chunked import encode_sharded_stage
     from huffman_codec_tpu_torch.parallel import mesh as M
 
     dist.init_process_group("nccl", world_size=1, rank=0,
@@ -2719,7 +2642,7 @@ def mesh_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict) -> dict:
         fns = {
             "encode": lambda: M.distributed_encode_step(
                 xd, n, mesh, CS, 0, True, "canonical", LANE),
-            "encode_single": lambda: _encode_sharded_stage(
+            "encode_single": lambda: encode_sharded_stage(
                 xd, n, 0, True, CS, n // CS, LANE),
             "encode_gathers": lambda: [M._gather(mesh, t)
                                        for t in (buf, lw, tab, rl, car)],
@@ -2766,10 +2689,8 @@ def eager_encode(codec, data: bytes) -> bytes:
     """The sharded stream encode one step at a time, launch by launch, each
     step fetched before the next is uploaded: the path the pipeline
     replaced, as the yardstick of its bytes."""
-    from huffman_codec_tpu_torch.models.chunked import (
-        _chunk_bits, _strip_payload, _wire_payload)
-
     cfg = codec.config
+    ent = codec.entropy
     arr = np.frombuffer(data, np.uint8)
     n_chunks = -(-len(arr) // cfg.chunk_size)
     S = min(cfg.step_chunks or n_chunks, n_chunks)
@@ -2777,13 +2698,13 @@ def eager_encode(codec, data: bytes) -> bytes:
     for k in range(-(-n_chunks // S)):
         a, meta, tab, rl, car = codec.encode_chunk_range(arr, k * S,
                                                          (k + 1) * S)
-        pay.append(_wire_payload(_strip_payload(a, meta), meta, "canonical"))
+        pay.append(wire_payload(codec, ent.keep(a, meta), meta))
         cols.append([t.cpu().numpy() for t in (meta, tab, rl, car)])
     meta, tab, rl, car = (np.concatenate([c[i] for c in cols])[:n_chunks]
                           for i in range(4))
     return codec._container(b"".join(pay), len(arr), int(rl.sum()),
-                            _chunk_bits(meta, "canonical"), tab, meta,
-                            (rl, car), zlib.crc32(data))
+                            *ent.manifest(meta, tab), (rl, car),
+                            zlib.crc32(data))
 
 
 def eager_round_trip_counts(K, codec, data: bytes, blob: bytes) -> dict:
@@ -2836,6 +2757,7 @@ def pipeline_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict):
     round trip. Returns the counted launches of the pipelined round
     trips."""
     from huffman_codec_tpu_torch.models.chunked import _encode_step
+    from huffman_codec_tpu_torch.models.entropy import CANONICAL
 
     data = x.tobytes()
     n = len(data)
@@ -2893,7 +2815,7 @@ def pipeline_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict):
         for k in range(n // (STEP * CS)):
             base = codec._upload_step(arr, k * STEP, (k + 1) * STEP)
             got = codec._run_encode_step(base, STEP)
-            want = _encode_step(base, STEP, CS, LANE, d, "canonical")
+            want = _encode_step(base, STEP, CS, LANE, d, CANONICAL)
             for i, (g, w) in enumerate(zip(got, want)):
                 same(f"pipeline.encode_step.{i}", g, w, errs)
         hdr, staged = codec.stage_decode_steps(blobs[d])
@@ -2932,7 +2854,7 @@ def pipeline_path(K, TorchCodec, CodecConfig, x: np.ndarray, errs: dict):
             "encode_graph": lambda: [codec._run_encode_step(b, STEP)
                                      for b in bases],
             "encode_eager": lambda: [_encode_step(b, STEP, CS, LANE, d,
-                                                  "canonical")
+                                                  CANONICAL)
                                      for b in bases],
             "decode": lambda: codec.run_decode_steps(hdr, staged),
             "decode_steps_alone": lambda: [codec._decode_step(hdr, st)
@@ -3150,8 +3072,8 @@ def native_oracle_path(K, x: np.ndarray, errs: dict, card: str) -> None:
     from huffman_codec_tpu_torch import native
     from huffman_codec_tpu_torch.formats import (
         make_v2_container, parse_v2_container)
-    from huffman_codec_tpu_torch.models.chunked import (
-        _encode_sharded_stage, _sharded_cap)
+    from huffman_codec_tpu_torch.models.chunked import encode_sharded_stage
+    from huffman_codec_tpu_torch.models.entropy import CANONICAL
     from huffman_codec_tpu_torch.ops.canonical import (
         build_lengths_exact, build_lengths_pm)
     from huffman_codec_tpu_torch.ops.fgk import (
@@ -3168,7 +3090,7 @@ def native_oracle_path(K, x: np.ndarray, errs: dict, card: str) -> None:
     car = torch.cat([torch.zeros(1, dtype=torch.uint8, device=dev),
                      xd[:-1, -1]])
     car_np = np.concatenate([[0], rows[:-1, -1]]).astype(np.uint8)
-    cap = _sharded_cap(CS, "canonical", LANE)
+    cap = CANONICAL.cap(CS, LANE)
     bad: dict = {}
 
     def count(name: str, n_bad: int) -> None:
@@ -3182,7 +3104,7 @@ def native_oracle_path(K, x: np.ndarray, errs: dict, card: str) -> None:
         nc = 0
         for k in range(C // STEP):
             sl = slice(k * STEP, (k + 1) * STEP)
-            *_, rl, sc = _encode_sharded_stage(
+            *_, rl, sc = encode_sharded_stage(
                 xd[sl].reshape(-1), STEP * CS, car[k * STEP:k * STEP + 1],
                 d, CS, STEP, LANE)
             nc += int((rl != lens[sl]).sum() + (sc != car[sl]).sum())
@@ -3295,7 +3217,8 @@ def main() -> int:
         return 1
     from huffman_codec_tpu_torch import CodecConfig, TorchCodec, V1Codec
     from huffman_codec_tpu_torch.models.chunked import (
-        _encode_sharded_stage, _strip_payload, step_graph_bound)
+        encode_sharded_stage, step_graph_bound)
+    from huffman_codec_tpu_torch.models.entropy import _strip_payload
     from huffman_codec_tpu_torch.native import runtime as native_runtime
     from huffman_codec_tpu_torch.ops import _build
     from huffman_codec_tpu_torch.ops import kernels as K
@@ -3315,13 +3238,8 @@ def main() -> int:
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    # the probes alongside the kernels' nvcc
-    chase_build = start_probe_build(_build, CHASE_SOURCE)
-    warp_build = start_probe_build(_build, WARP_SOURCE)
     built = _build.build_all()
     log(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
-    access = shared_access(chase_build)
-    warp = probe_library(warp_build, "fgk_warp.cu")
     t0 = time.perf_counter()
     log(f"build: host runtime {native_runtime.build().name} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3402,7 +3320,7 @@ def main() -> int:
             for k in range(n_in // (STEP * CS)):
                 seg = xd[k * STEP * CS:(k + 1) * STEP * CS]
                 carry = int(x[k * STEP * CS - 1]) if k else 0
-                buf, lw, tab, rl, car = _encode_sharded_stage(
+                buf, lw, tab, rl, car = encode_sharded_stage(
                     seg, STEP * CS, carry, d, CS, STEP, LANE)
                 outs.append(_strip_payload(buf, lw))
             return outs
@@ -3592,7 +3510,7 @@ def main() -> int:
         row["launches_adaptive"] = alaunches[row["name"]]
     rows += [row_1b, row_walk]
     flaunches, fgk_rows, v1_launches = fgk_path(
-        K, TorchCodec, V1Codec, CodecConfig, x, errs, access, warp)
+        K, TorchCodec, V1Codec, CodecConfig, x, errs)
     # the one-group instance's launches: V1Codec's four configs on 256 KiB
     row_walk["one_group"]["launches"] = v1_launches["group_tile_lens"]
     for row in rows:

@@ -49,9 +49,9 @@
 // and a binary search find the run's first slot. A swap moves two content
 // words and points the moved children (or the moved leaf's symbol) back.
 // (Knuth's block records, kept in O(1) a level, give the same slot and
-// are timed beside this in kernel_variants/fgk_chain.cu: two dependent
-// loads for the leader and the records' upkeep cost more than the own
-// test and the rare gallop.)
+// were timed beside this, `git show 128a866:kernel_variants/fgk_chain.cu`:
+// two dependent loads for the leader and the records' upkeep cost more
+// than the own test and the rare gallop.)
 // The encoder takes the code and the update in one climb while no level
 // swaps: a weight increment changes no edge, so the code read on the way
 // up is the tree's before the update. At the first swap it reads the rest

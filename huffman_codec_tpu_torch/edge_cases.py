@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from huffman_codec_tpu_torch.formats import make_huff_header, pack_bits_msb
-from huffman_codec_tpu_torch.models.chunked import _strip_payload
+from huffman_codec_tpu_torch.models.entropy import _strip_payload
 from huffman_codec_tpu_torch.ops import kernels as K
 from huffman_codec_tpu_torch.ops.canonical import assign_codes
 from huffman_codec_tpu_torch.pyref.fgk import fgk_encode

@@ -65,15 +65,19 @@ decode kernel) and puts the tiles back.
 
 FGK entropy (``entropy="fgk"``) replaces the canonical stage in every
 layout: each chunk's symbols are coded with an adaptive Huffman tree of
-its own (the FGK kernels, a warp a chunk), and the container keeps each
-chunk's stream byte-aligned with its bit count in the manifest, no tables
-and no lanes. The global layout then has one candidate, ``chunk_size``
-chunks at the configured lane, still raced against v1.
+its own (the FGK kernels, one thread a chunk's chain), and the container
+keeps each chunk's stream byte-aligned with its bit count in the
+manifest, no tables and no lanes. The global layout then has one
+candidate, ``chunk_size`` chunks at the configured lane, still raced
+against v1.
+
+Every decision of the entropy mode is asked of its coder
+(``models/entropy.py``), looked up once by ``CodecConfig.entropy`` or by
+a container's entropy byte; this module holds no entropy branch.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import struct
 import zlib
@@ -82,8 +86,8 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from huffman_codec_tpu_torch.formats import (
-    ENTROPY,
+from huffman_codec_tpu_torch.formats import (  # noqa: F401
+    # ENTROPY_*: the JAX module's names (tests/test_torch_surface.py)
     ENTROPY_CANONICAL,
     ENTROPY_FGK,
     FLAG_ADAPT,
@@ -96,13 +100,12 @@ from huffman_codec_tpu_torch.formats import (
     is_v2,
     parse_huff_header,
 )
+from huffman_codec_tpu_torch.models import entropy
 from huffman_codec_tpu_torch.models.pipeline import (
     ALIGN,
-    SideBySide,
     StepGraph,
     Transfers,
     aligned,
-    side_by_side_width,
 )
 from huffman_codec_tpu_torch.native import runtime
 from huffman_codec_tpu_torch.ops import kernels
@@ -117,14 +120,8 @@ from huffman_codec_tpu_torch.ops.adapt import (
     grouped_manifest,
     tile_len_width,
 )
-from huffman_codec_tpu_torch.ops.canonical import (
-    canonical_decode_batch,
-    canonical_encode_batch,
-)
 from huffman_codec_tpu_torch.ops.diff import diff_apply, diff_revert
-from huffman_codec_tpu_torch.ops.fgk import n_words_for
 from huffman_codec_tpu_torch.ops.kernels import lane_words_cap
-from huffman_codec_tpu_torch.ops.pack import chunk_bytes, chunk_words
 from huffman_codec_tpu_torch.ops.rle import (
     CLASSIFY_BLOCK,
     rle_decode,
@@ -160,8 +157,6 @@ class CodecConfig:
 # with canonical entropy, 256 chunks of 64 KiB per step
 MAIN_PATH = CodecConfig(layout="sharded", step_chunks=256)
 
-# a one-chunk container up to this size decodes as 8 pseudo-chunks
-_SINGLE_MAX = 2 << 20
 # the whole-file candidate is tried up to this padded RLE size
 _WHOLE_MAX_CAP = 3_500_000
 
@@ -223,63 +218,6 @@ def _unpack_groups(groups: np.ndarray, width: int, out: np.ndarray) -> None:
         out[:, k] = (win >> (8 * (c1 + 1) - first - width)) & mask
 
 
-def _sharded_cap(chunk_size: int, entropy: str, lane: int) -> int:
-    """Padded per-chunk RLE buffer length; canonical rounds up to whole
-    blocks of 8 lanes."""
-    cap = rle_max_encoded_len(chunk_size)
-    blk = 8 * lane
-    return -(-cap // blk) * blk if entropy == "canonical" else cap
-
-
-def _strip_payload(buf: torch.Tensor, lw: torch.Tensor) -> torch.Tensor:
-    """(C, n_lanes, W) padded lane buffers -> a (C * n_lanes * W,) buffer
-    whose prefix is the dense payload words, zeros past it, at a fixed
-    shape and without synchronising (the JAX package's compaction): each
-    lane's first ``lw`` words are scattered to its offset, an exclusive
-    cumsum of ``lw``, its other words to a spill slot of its own past the
-    end, which is cut off. The used length is ``lw.sum()``, which a caller
-    reads from the manifest."""
-    C, nl, W = buf.shape
-    n = C * nl * W
-    dev = buf.device
-    lw64 = lw.reshape(-1).to(torch.int64)
-    off = torch.cumsum(lw64, 0) - lw64
-    col = torch.arange(W, device=dev)[None, :]
-    spill = n + torch.arange(C * nl, device=dev)[:, None]
-    dst = torch.where(col < lw64[:, None], off[:, None] + col, spill)
-    out = torch.zeros(n + C * nl, dtype=buf.dtype, device=dev)
-    out.scatter_(0, dst.reshape(-1), buf.reshape(-1))
-    return out[:n]
-
-
-def _words_to_wire(words: torch.Tensor) -> bytes:
-    """int32 words (u32 bits) -> big-endian wire bytes; uint8 payload bytes
-    as they are."""
-    if words.dtype == torch.uint8:
-        return words.cpu().numpy().tobytes()
-    return words.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
-
-
-def _wire_payload(payload: torch.Tensor, meta: torch.Tensor,
-                  entropy: str) -> bytes:
-    """The wire bytes of ``_dense_payload``'s output: the used prefix of a
-    canonical strip (``meta.sum()`` words; reading it synchronises), or
-    the FGK bytes as they are."""
-    if entropy == "canonical":
-        payload = payload[: int(meta.sum())]
-    return _words_to_wire(payload)
-
-
-def _bucket(used: int, size: int) -> int:
-    """The words a payload fetch takes: ``used`` rounded up to a power of
-    two (at least 1024), as the JAX package's second fetch wave does, at
-    most the payload's ``size``."""
-    b = 1024
-    while b < used:
-        b <<= 1
-    return min(b, size)
-
-
 def encode_step_chunks(n_chunks: int, step_chunks: int | None) -> int:
     """Chunks in each encode step of an input of ``n_chunks`` (>= 1)
     chunks: ``step_chunks`` for an input of a step or more (the last step
@@ -303,52 +241,20 @@ def step_graph_bound(step_chunks: int | None) -> int:
     return (step_chunks - 1).bit_length() + 1 if step_chunks else 0
 
 
-def _entropy_encode(chunks: torch.Tensor, lens: torch.Tensor, entropy: str,
-                    lane: int, n_words: int | None = None):
-    """Chunk rows (C, L) uint8 -> (a, meta, tables) on the device:
-    canonical -> (lane_buf (C, n_lanes, W), lane_words (C, n_lanes),
-    tables); fgk -> (words (C, n_words), bits (C,), None), ``n_words``
-    defaulting to the worst case of an L-symbol row."""
-    if entropy == "canonical":
-        return canonical_encode_batch(chunks, lens, lane=lane)
-    words, bits = kernels.fgk_encode(
-        chunks, lens, n_words_for(chunks.shape[1]) if n_words is None
-        else n_words)
-    return words, bits, None
-
-
-def _dense_payload(a: torch.Tensor, meta: torch.Tensor,
-                   entropy: str) -> torch.Tensor:
-    """The wire payload of ``_entropy_encode``'s outputs on the device:
-    the used lane words (int32) of canonical lane buffers, or each FGK
-    chunk's byte-aligned stream (uint8)."""
-    if entropy == "canonical":
-        return _strip_payload(a, meta)
-    return chunk_bytes(a, meta)
-
-
-def _chunk_bits(meta: np.ndarray, entropy: str) -> list:
-    """Per-chunk stream bits from the lane words (canonical) or the FGK
-    bit counts."""
-    if entropy == "canonical":
-        return (meta.sum(axis=1, dtype=np.int64) * 32).tolist()
-    return meta.astype(np.int64).tolist()
-
-
-def _encode_sharded_stage(data: torch.Tensor, length,
-                          carry0: int | torch.Tensor, use_diff: bool,
-                          chunk_size: int, n_chunks: int, lane: int,
-                          entropy: str = "canonical",
-                          n_words: int | None = None):
-    """Per-chunk diff (with carry) -> per-chunk RLE -> entropy coding.
+def encode_sharded_stage(data: torch.Tensor, length,
+                         carry0: int | torch.Tensor, use_diff: bool,
+                         chunk_size: int, n_chunks: int, lane: int,
+                         ent=entropy.CANONICAL, n_words: int | None = None):
+    """Per-chunk diff (with carry) -> per-chunk RLE -> entropy coding by
+    ``ent`` (a coder of ``models/entropy.py``).
 
     ``data`` is (n_chunks * chunk_size,) uint8 on the device, of which the
     first ``length`` bytes (an int or a 0-d tensor; below 0 or past the
     data it clips) are input; ``carry0`` is the input byte before it (0
     at the stream start), an int or a (1,) uint8 tensor on the device,
     which is read without synchronising. ``n_words`` sizes FGK's word
-    rows (``_entropy_encode``). Returns ``_entropy_encode``'s (a, meta,
-    tables), then (rle_lens, carries), on the device."""
+    rows (``ent.encode``). Returns ``ent.encode``'s (a, meta, tables),
+    then (rle_lens, carries), on the device."""
     dev = data.device
     chunks = data.view(n_chunks, chunk_size)
     starts = torch.arange(n_chunks, device=dev, dtype=torch.int64) * chunk_size
@@ -357,11 +263,10 @@ def _encode_sharded_stage(data: torch.Tensor, length,
     # interior chunks are full, so [:, -1] is the next chunk's carry; the
     # chunks after a partial tail have in_lens 0 and encode nothing
     carries = torch.cat([carry0, chunks[:-1, -1]])
-    cap = _sharded_cap(chunk_size, entropy, lane)
-    streams, rle_lens = kernels.rle_diff_encode(chunks, in_lens, carries,
-                                                use_diff, cap)
-    return (*_entropy_encode(streams, rle_lens, entropy, lane, n_words),
-            rle_lens, carries)
+    streams, rle_lens = kernels.rle_diff_encode(
+        chunks, in_lens, carries, use_diff, ent.cap(chunk_size, lane))
+    return (*ent.encode(streams, rle_lens, lane, n_words), rle_lens,
+            carries)
 
 
 def _step_views(base: torch.Tensor, S: int, chunk_size: int):
@@ -373,19 +278,14 @@ def _step_views(base: torch.Tensor, S: int, chunk_size: int):
 
 
 def _encode_step(base: torch.Tensor, S: int, chunk_size: int, lane: int,
-                 use_diff: bool, entropy: str):
-    """One sharded encode step from its uploaded buffer: the stage, and for
-    canonical entropy the payload stripped on the device at a fixed shape
-    (what a CUDA graph captures). Returns (payload, meta, tables,
-    rle_lens, carries) on the device: the stripped words, or FGK's word
-    rows as they are (``chunk_bytes`` strips them, with a synchronisation,
-    once every step is dispatched)."""
+                 use_diff: bool, ent):
+    """One sharded encode step from its uploaded buffer: the stage, and
+    what ``ent`` keeps of the payload (``ent.keep``). Returns (payload,
+    meta, tables, rle_lens, carries) on the device."""
     data, length, carry = _step_views(base, S, chunk_size)
-    a, meta, tables, rl, car = _encode_sharded_stage(
-        data, length, carry, use_diff, chunk_size, S, lane, entropy)
-    if entropy == "canonical":
-        a = _strip_payload(a, meta)
-    return a, meta, tables, rl, car
+    a, meta, tables, rl, car = encode_sharded_stage(
+        data, length, carry, use_diff, chunk_size, S, lane, ent)
+    return ent.keep(a, meta), meta, tables, rl, car
 
 
 def _chunkify(stream: torch.Tensor, total: torch.Tensor, chunk_size: int,
@@ -395,36 +295,6 @@ def _chunkify(stream: torch.Tensor, total: torch.Tensor, chunk_size: int,
     starts = torch.arange(max_chunks, device=stream.device) * chunk_size
     lens = (total.to(torch.int64) - starts).clamp(0, chunk_size)
     return stream.view(max_chunks, chunk_size), lens.to(torch.int32)
-
-
-def _encode_stream_stage(data: torch.Tensor, use_diff: bool, chunk_size: int,
-                         max_chunks: int, lane: int, entropy: str):
-    """Whole-input diff -> whole-input RLE (one stream, no carries) ->
-    chunked entropy coding. ``data`` is (n,) uint8 on the device. Returns
-    ``_entropy_encode``'s (a, meta, tables) and the stream length, on the
-    device."""
-    x = diff_apply(data) if use_diff else data
-    n = torch.tensor([x.shape[0]], dtype=torch.int32, device=x.device)
-    stream, total = rle_encode(x[None, :], n, max_chunks * chunk_size)
-    chunks, lens = _chunkify(stream[0], total[0], chunk_size, max_chunks)
-    return (*_entropy_encode(chunks, lens, entropy, lane), total[0])
-
-
-def _encode_adapt_stage(data: torch.Tensor, use_diff: bool, width: int,
-                        height: int, bs: int, chunk_size: int,
-                        max_chunks: int, lane: int, entropy: str):
-    """Whole-input diff -> adaptive block RLE at block size ``bs`` ->
-    chunked entropy coding. The transformed stream is the concatenated
-    tile data only: the manifest replaces the v1 in-band header. Returns
-    ``_entropy_encode``'s (a, meta, tables), then (total, dirs,
-    tile_lens), on the device."""
-    x = diff_apply(data) if use_diff else data
-    stream, total, dirs, tile_lens = adapt_encode_fixed(
-        x, width, height, bs, out_len=max_chunks * chunk_size,
-        with_header=False)
-    chunks, lens = _chunkify(stream, total, chunk_size, max_chunks)
-    return (*_entropy_encode(chunks, lens, entropy, lane), total, dirs,
-            tile_lens)
 
 
 def _band_tiles(width: int, band_h: int, bs: int) -> int:
@@ -450,15 +320,15 @@ def _band_winner_order(work: torch.Tensor, width: int, band_h: int, bs: int):
     return win, dirs, torch.minimum(h_sz, v_sz).to(torch.int32)
 
 
-def _encode_sharded_adapt_stage(bands: torch.Tensor, carries: torch.Tensor,
-                                use_diff: bool, width: int, band_h: int,
-                                bs: int, cap: int, lane: int,
-                                entropy: str = "canonical"):
+def encode_sharded_adapt_stage(bands: torch.Tensor, carries: torch.Tensor,
+                               use_diff: bool, width: int, band_h: int,
+                               bs: int, cap: int, lane: int,
+                               ent=entropy.CANONICAL):
     """Sharded-adaptive encode of (nb, band_h * width) uint8 bands of one
     height: per-band diff seeded by ``carries``, adaptive block RLE of
     each band on its own at block size ``bs`` (tiles clamped at the
-    band's borders), entropy coding per band. Returns
-    ``_entropy_encode``'s (a, meta, tables), then (stream_lens (nb,), dirs
+    band's borders), entropy coding per band by ``ent``. Returns
+    ``ent.encode``'s (a, meta, tables), then (stream_lens (nb,), dirs
     (nb, nt), tile_lens (nb, nt)), on the device."""
     work = diff_apply(bands, carries) if use_diff else bands
     nb, cs = work.shape
@@ -473,12 +343,11 @@ def _encode_sharded_adapt_stage(bands: torch.Tensor, carries: torch.Tensor,
     else:
         streams, totals, dirs, tile_lens = adapt_encode_bands(
             work, width, band_h, bs, cap)
-    return (*_entropy_encode(streams, totals, entropy, lane), totals, dirs,
-            tile_lens)
+    return (*ent.encode(streams, totals, lane), totals, dirs, tile_lens)
 
 
-def _decode_sharded_adapt_tail(streams, tile_lens, dirs, carries, width: int,
-                               band_h: int, bs: int, use_diff: bool):
+def decode_sharded_adapt_tail(streams, tile_lens, dirs, carries, width: int,
+                              band_h: int, bs: int, use_diff: bool):
     """Inverse of the band stage: per-band tile decode from the manifest,
     then the per-band diff revert seeded by the stored carries."""
     out = adapt_decode_bands(streams, tile_lens, dirs, width, band_h, bs)
@@ -491,25 +360,21 @@ def _decode_adapt_tail(stream, tile_lens, dirs, width: int, height: int,
     return diff_revert(flat) if use_diff else flat
 
 
-def _global_geometry(cfg: CodecConfig, n: int, whole: bool):
+def _global_geometry(cfg: CodecConfig, n: int, whole: bool, ent):
     """(chunk_size, lane, max_chunks) of one global-layout candidate for
     ``n`` input bytes. ``whole``: one chunk of fat lanes, the smallest
     power-of-two lane >= an eighth of the padded RLE size, at most 32768,
     and the chunk rounded up to 8 lanes; else ``chunk_size`` chunks at
-    lane 2048 (the configured lane for FGK entropy, when ``whole_file`` is
-    off or when 2048 does not divide the chunk)."""
+    lane 2048 beside a whole-file candidate (``ent.whole_file``) where it
+    divides the chunk, the configured lane otherwise."""
     cap = rle_max_encoded_len(n) + 64
     if whole:
         lane = min(1 << 15, max(64, 1 << ((cap + 7) // 8 - 1).bit_length()))
         cs = _cdiv(cap, 8 * lane) * (8 * lane)
         return cs, lane, 1
-    lane = (2048 if cfg.whole_file and cfg.entropy == "canonical"
+    lane = (2048 if cfg.whole_file and ent.whole_file
             and cfg.chunk_size % 2048 == 0 else cfg.lane)
     return cfg.chunk_size, lane, _cdiv(cap, cfg.chunk_size)
-
-
-def _entropy_name(hdr: dict) -> str:
-    return "canonical" if hdr["entropy"] == ENTROPY_CANONICAL else "fgk"
 
 
 def _decode_stream_tail(stream: torch.Tensor, total: int, out_len: int,
@@ -536,8 +401,8 @@ class TorchCodec:
     graphs (9 at ``step_chunks`` 256, none with ``step_chunks`` None)
     whatever sizes and data it sees. Everything else runs launch by
     launch: the decode steps, FGK entropy, the other layouts and
-    adaptive mode. The sharded FGK steps of one request run side by side
-    on the codec's side streams (``models/pipeline.SideBySide``)."""
+    adaptive mode. ``entropy`` is the codec's coder (``models/entropy.py``):
+    FGK's sharded steps of a request run side by side on side streams."""
 
     # the v1 race runs only on small inputs (the v1 FGK chain is serial
     # per symbol) whose v3 container is small enough for its fixed costs
@@ -549,14 +414,8 @@ class TorchCodec:
         self.config = cfg = config or CodecConfig()
         # the JAX package's order of checks, so that a config breaking
         # two rules gets the same message
-        if cfg.entropy not in ENTROPY:
-            raise ValueError(f"unknown entropy mode {cfg.entropy}")
-        if cfg.entropy == "canonical":
-            if cfg.chunk_size % cfg.lane:
-                raise ValueError("chunk_size must divide by lane")
-            if cfg.lane > 1 << 15:
-                raise ValueError("lane > 32768 overflows the packed "
-                                 "lane-words manifest width")
+        self.entropy = entropy.lookup(cfg.entropy)
+        self.entropy.check(cfg.chunk_size, cfg.lane)
         if cfg.layout not in ("global", "sharded"):
             raise ValueError(f"unknown layout {cfg.layout}")
         if cfg.layout == "sharded" and cfg.use_adapt:
@@ -591,21 +450,20 @@ class TorchCodec:
           ``container``, ``v1 race`` (encode); ``parse``, ``upload``,
           ``dispatch``, ``wait``, ``bytes``, ``crc32``, or ``v1 decode``
           for a v1 blob (decode).
-        - FGK entropy adds ``fgk strip`` (the sharded encode's strip of
-          its word rows, ``chunk_bytes`` with its synchronisations).
-        The adaptive block-size search and the sharded-adaptive steps lie
-        in no span. Device spans, between CUDA events, added by the
-        timer's ``resolve`` once the work has run: ``device``, the sharded
-        steps' time (canonical: a span a step; FGK: one span a request,
-        from the fork of its side-by-side steps to their join); ``fgk
-        rows``, an FGK decode's cut of its payload into word rows as it is
-        staged.
+        - FGK entropy adds ``fgk strip`` (the encode's strip of its word
+          rows in the fetch, ``chunk_bytes`` with its synchronisations).
+        The adaptive block-size search and the sharded-adaptive stages lie
+        in no span but FGK's strip. Device spans, between CUDA events,
+        added by the timer's ``resolve`` once the work has run:
+        ``device``, the sharded steps' time (canonical: a span a step;
+        FGK: one span a request, from the fork of its side-by-side steps
+        to their join); ``fgk rows``, an FGK decode's cut of its payload
+        into word rows as it is staged.
         Counters: ``v1 races`` and ``v1 wins`` (``_race_v1``), ``parse
         copied bytes`` (the container's bytes ``_parse`` copies), ``fgk
-        code bits`` (the bits of the FGK streams a sharded encode wrote,
-        or a decode staged), ``fgk steps`` (the FGK sharded steps run)
-        and ``fgk steps side by side`` (those queued on a side stream that
-        held no earlier step of the request; on the card only)."""
+        steps`` (the FGK sharded steps run) and ``fgk steps side by
+        side`` (those queued on a side stream that held no earlier step
+        of the request; on the card only)."""
         return self._xfer.timer
 
     @timer.setter
@@ -618,8 +476,8 @@ class TorchCodec:
         """Encode chunks [c0, c1) of the input (sharded layout only) as
         one fixed step; chunks past the input are zero-padded and encode
         nothing. The step is restartable through its carry byte, so a
-        range re-encoded alone splices in byte-equal. Returns
-        ``_entropy_encode``'s (a, meta, tables), then (rle_lens, carries),
+        range re-encoded alone splices in byte-equal. Returns the coder's
+        (a, meta, tables) (``entropy.encode``), then (rle_lens, carries),
         on the device, without synchronising."""
         cfg = self.config
         if cfg.layout != "sharded":
@@ -628,9 +486,9 @@ class TorchCodec:
                if isinstance(data, (bytes, bytearray)) else data)
         base = self._upload_step(arr, c0, c1)
         x, length, carry = _step_views(base, c1 - c0, cfg.chunk_size)
-        return _encode_sharded_stage(x, length, carry, cfg.use_diff,
-                                     cfg.chunk_size, c1 - c0, cfg.lane,
-                                     cfg.entropy)
+        return encode_sharded_stage(x, length, carry, cfg.use_diff,
+                                    cfg.chunk_size, c1 - c0, cfg.lane,
+                                    self.entropy)
 
     def _upload_step(self, arr: np.ndarray, c0: int, c1: int) -> torch.Tensor:
         """Chunks [c0, c1) of the input as one fixed step, in one buffer on
@@ -657,24 +515,18 @@ class TorchCodec:
         return base, ready
 
     def _run_encode_step(self, base: torch.Tensor, S: int):
-        """``_encode_step`` of an uploaded step of S chunks. Canonical
-        entropy on CUDA with ``step_chunks`` set runs the CUDA graph of
-        step count S (``StepGraph``: the first step of a count runs
-        eagerly and captures the graph, which synchronises once; later
-        ones replay without synchronising) and clones its outputs, since
-        every step is dispatched before any is fetched; S comes from
-        ``encode_step_chunks``, so the graphs are at most
-        ``step_graph_bound(step_chunks)``. FGK runs eagerly: its step is
-        a few launches around one chain-bound kernel of tens of ms, whose
-        launch a graph replay would not shorten (``dispatch_sharded`` runs
-        FGK's steps side by side, ``_dispatch_fgk``). ``step_chunks`` None
-        (every input a step of its own count) and the CPU run eagerly too,
-        without synchronising."""
+        """``_encode_step`` of an uploaded step of S chunks: on CUDA with
+        ``step_chunks`` set, unless the coder is chain-bound (FGK: one
+        kernel of tens of ms a replay would not shorten), the CUDA graph
+        of step count S (``StepGraph``: the first step of a count runs
+        eagerly and captures it, synchronising once), its outputs cloned,
+        since every step is dispatched before any is fetched; at most
+        ``step_graph_bound(step_chunks)`` graphs. Else eagerly."""
         cfg = self.config
         step = functools.partial(
             _encode_step, S=S, chunk_size=cfg.chunk_size, lane=cfg.lane,
-            use_diff=cfg.use_diff, entropy=cfg.entropy)
-        if (cfg.entropy != "canonical" or not cfg.step_chunks
+            use_diff=cfg.use_diff, ent=self.entropy)
+        if (self.entropy.chain_bound or not cfg.step_chunks
                 or not self._xfer.cuda):
             return step(base)
         graph = self._graphs.get(S)
@@ -686,99 +538,49 @@ class TorchCodec:
     def dispatch_sharded(self, data: bytes) -> list:
         """The dispatch half of the sharded stream encode: every step of
         ``encode_step_chunks`` chunks staged, uploaded and run
-        (``_run_encode_step``; FGK: ``_dispatch_fgk``) before any is
-        fetched; nothing here waits for the device once the steps' graphs
-        exist. Returns each step's outputs on the device, for
-        ``fetch_sharded``."""
+        (``_run_encode_step``) before any is fetched, in the coder's
+        schedule (FGK's side by side: a request takes about its longest
+        chain). Nothing here waits for the device once the steps' graphs
+        exist. Returns each step's outputs on the device."""
         cfg = self.config
         arr = np.frombuffer(data, np.uint8)
         n_chunks = _cdiv(len(arr), cfg.chunk_size)
         S = encode_step_chunks(n_chunks, cfg.step_chunks)
-        if cfg.entropy == "fgk":
-            return self._dispatch_fgk(arr, n_chunks, S)
-        outs = []
-        for k in range(_cdiv(n_chunks, S)):
-            base = self._upload_step(arr, k * S, (k + 1) * S)
-            with self._xfer.device_stage("device"):
-                outs.append(self._run_encode_step(base, S))
-        return outs
-
-    def _fgk_width(self, S: int) -> int:
-        """FGK steps of S chunks that run side by side on this codec's
-        device: as many as it holds the FGK kernels' blocks of at once."""
-        if not self._xfer.cuda:
-            return 1
-        index = self.device.index
-        return side_by_side_width(kernels.fgk_resident_blocks(
-            torch.cuda.current_device() if index is None else index), S)
-
-    def _dispatch_fgk(self, arr: np.ndarray, n_chunks: int, S: int,
-                      width: int | None = None) -> list:
-        """``dispatch_sharded`` for FGK entropy. A step's device work (the
-        diff, the RLE and ``fgk_encode``: ``_encode_step``) is bound by
-        its longest chain, one thread a chunk, so the steps run side by
-        side (``SideBySide``), ``width`` at once (``_fgk_width`` by
-        default; a test may pass 1), each after its own upload; a request
-        then takes about its longest chain, not the sum of every step's.
-        The device span ``device`` runs on the current stream from the
-        first step's fork to the join."""
-        cfg = self.config
-        xf = self._xfer
         n_steps = _cdiv(n_chunks, S)
-        width = self._fgk_width(S) if width is None else width
+        run = self.entropy.schedule(self._xfer, n_steps, S)
         outs = []
-        with contextlib.ExitStack() as span:
-            for k in range(n_steps):
-                base, ready = self._stage_upload(arr, k * S, (k + 1) * S)
-                if k == 0:
-                    span.enter_context(xf.device_stage("device"))
-                    run = SideBySide(xf, n_steps, width, "fgk steps")
-                with run.step(k, ready, (base,)):
-                    out = _encode_step(base, S, cfg.chunk_size, cfg.lane,
-                                       cfg.use_diff, "fgk")
-                outs.append(run.hand_back(out))
-            if outs:
-                run.join()
+        for k in range(n_steps):
+            base, ready = self._stage_upload(arr, k * S, (k + 1) * S)
+            with run.step(k, ready, (base,)):
+                out = self._run_encode_step(base, S)
+            outs.append(run.hand_back(out))
+        run.join()
         return outs
 
     def fetch_sharded(self, data: bytes, outs: list) -> bytes:
         """The fetch half: wave 1 copies every step's manifests (lane words
         or FGK bits, tables, rle_lens, carries) to pinned memory and waits
-        once; wave 2 copies each canonical step's used payload prefix
-        (rounded up by ``_bucket``) and waits once; then the container.
-        FGK strips its word rows here (``chunk_bytes``, which
-        synchronises), inside the span ``fgk strip``, and counts the
-        streams' bits as ``fgk code bits``."""
-        cfg = self.config
+        once; wave 2 is the coder's payload wave (``entropy.payloads``);
+        then the container."""
+        ent = self.entropy
         n = len(data)
-        n_chunks = _cdiv(n, cfg.chunk_size)
-        canonical = cfg.entropy == "canonical"
+        n_chunks = _cdiv(n, self.config.chunk_size)
         xf = self._xfer
         man = [xf.fetch([t for t in o[1:] if t is not None]) for o in outs]
         xf.fence()
-        if canonical:
-            used = [int(m[0].numpy().sum(dtype=np.int64)) for m in man]
-            pays = [xf.fetch([o[0][: _bucket(u, o[0].shape[0])]])[0]
-                    for o, u in zip(outs, used)]
-            xf.fence()
-            pays = [p[:u] for p, u in zip(pays, used)]
-        else:
-            with xf.host_stage("fgk strip"):
-                pays = [chunk_bytes(o[0], o[1]) for o in outs]
-        cols = [np.concatenate([m[i].numpy() for m in man])[:n_chunks]
-                for i in range(len(man[0]))]
-        meta, rl, car = cols[0], cols[-2], cols[-1]
-        if not canonical and xf.timer is not None:
-            xf.timer.count("fgk code bits", int(meta.sum(dtype=np.int64)))
+        pays, landed = ent.payloads(xf, [o[0] for o in outs],
+                                    [o[1] for o in outs], [m[0] for m in man])
+        xf.wait_host(landed)
+        *cols, rl, car = (
+            np.concatenate([m[i].numpy() for m in man])[:n_chunks]
+            for i in range(len(man[0])))
         with xf.host_stage("payload"):
-            payload = b"".join(_words_to_wire(p) for p in pays)
+            payload = b"".join(ent.wire(p) for p in pays)
         with xf.host_stage("crc32"):
             crc = zlib.crc32(data)
         with xf.host_stage("container"):
-            return self._container(
-                payload, n, int(rl.sum()), _chunk_bits(meta, cfg.entropy),
-                cols[1] if canonical else None,
-                meta if canonical else None, (rl, car), crc)
+            return self._container(payload, n, int(rl.sum()),
+                                   *ent.manifest(*cols), (rl, car), crc)
 
     def encode(self, data: bytes) -> bytes:
         cfg = self.config
@@ -825,25 +627,25 @@ class TorchCodec:
         synchronising: the full bands in one call, then a shorter tail
         band in a call of its own at its clamped geometry.
         Returns per call (payload, meta, tables, stream_lens, dirs,
-        tile_lens): the payload as ``_dense_payload`` gives it, meta and
-        tables as ``_entropy_encode``."""
+        tile_lens), the payload as the coder keeps it (``entropy.keep``)."""
         cfg = self.config
+        ent = self.entropy
         w, cs = cfg.width, cfg.chunk_size
         band_h = cs // w
         nb_full, h_tail = divmod(x.shape[0] // w, band_h)
         # band k's diff carry is the input byte before it
         car = torch.cat([x.new_zeros(1), x[cs - 1:: cs]])
-        cap = _sharded_cap(cs, cfg.entropy, cfg.lane)
+        cap = ent.cap(cs, cfg.lane)
         calls = [(0, nb_full, band_h)] if nb_full else []
         if h_tail:
             calls.append((nb_full, nb_full + 1, h_tail))
         outs = []
         for b0, b1, bh in calls:
             bands = x[b0 * cs: b0 * cs + (b1 - b0) * bh * w].view(b1 - b0, -1)
-            a, meta, *rest = _encode_sharded_adapt_stage(
+            a, meta, *rest = encode_sharded_adapt_stage(
                 bands, car[b0:b1], cfg.use_diff, w, bh, bs, cap, cfg.lane,
-                cfg.entropy)
-            outs.append((_dense_payload(a, meta, cfg.entropy), meta, *rest))
+                ent)
+            outs.append((ent.keep(a, meta), meta, *rest))
         return outs
 
     def _encode_sharded_adapt(self, data: bytes) -> bytes:
@@ -864,29 +666,31 @@ class TorchCodec:
         bs = adapt_search_best_v3(diff_apply(x) if cfg.use_diff else x, w,
                                   n_rows, max_height=band_h)
         outs = self.run_sharded_adapt_stage(x, bs)
-        payload = b"".join(_wire_payload(o[0], o[1], cfg.entropy)
-                           for o in outs)
-        meta, rl = (np.concatenate([o[i].cpu().numpy() for o in outs])
-                    for i in (1, 3))
-        canonical = cfg.entropy == "canonical"
-        tables = (np.concatenate([o[2].cpu().numpy() for o in outs])
-                  if canonical else None)
-        dirs, tile_lens = (
+        ent = self.entropy
+        xf = self._xfer
+        # the coder's manifest columns: meta, and the tables it has
+        man = [[t.cpu() for t in o[1:3] if t is not None] for o in outs]
+        pays, landed = ent.payloads(xf, [o[0] for o in outs],
+                                    [o[1] for o in outs], [m[0] for m in man])
+        xf.wait_host(landed)
+        payload = b"".join(ent.wire(p) for p in pays)
+        cols = [np.concatenate([m[i].numpy() for m in man])
+                for i in range(len(man[0]))]
+        rl, dirs, tile_lens = (
             np.concatenate([o[i].cpu().numpy().reshape(-1) for o in outs])
-            for i in (4, 5))
+            for i in (3, 4, 5))
         car = np.zeros(len(rl), np.uint8)
         car[1:] = arr[cs - 1:: cs][: len(rl) - 1]
         return self._container(
-            payload, n, int(rl.sum()), _chunk_bits(meta, cfg.entropy),
-            tables, meta if canonical else None, (rl, car),
+            payload, n, int(rl.sum()), *ent.manifest(*cols), (rl, car),
             zlib.crc32(data),
             adapt_meta=(w, n_rows, bs, dirs, tile_lens, False))
 
     def global_candidates(self, n: int) -> list[bool]:
         """The candidates ``encode`` tries for ``n`` input bytes, as
-        ``whole`` flags in the order that decides a tie; FGK entropy has
-        only the chunked one."""
-        if (self.config.whole_file and self.config.entropy == "canonical"
+        ``whole`` flags in the order that decides a tie; a coder without
+        the whole-file candidate (FGK) has only the chunked one."""
+        if (self.config.whole_file and self.entropy.whole_file
                 and rle_max_encoded_len(n) + 64 <= _WHOLE_MAX_CAP):
             return [True, False]
         return [False]
@@ -894,25 +698,29 @@ class TorchCodec:
     def run_global_stage(self, x: torch.Tensor, whole: bool,
                          bs: int | None = None) -> dict:
         """One global-layout candidate's device stage on resident input
-        ((n,) uint8 on the device), without synchronising: the dense
-        payload (``_dense_payload``), the lane words or FGK bit counts,
-        the tables (None for FGK) and the stream length, and in adaptive
-        mode (``bs`` is the block size, None in stream mode) the tiles'
-        directions and lengths."""
+        ((n,) uint8), without synchronising: the whole-input diff and RLE
+        (the adaptive block RLE at block size ``bs``, None in stream mode),
+        the stream cut into chunks and coded. Returns the payload as the
+        coder keeps it (``entropy.keep``), meta, tables, the stream length
+        and in adaptive mode the tiles' directions and lengths."""
         cfg = self.config
+        ent = self.entropy
         n = x.shape[0]
-        cs, lane, max_chunks = _global_geometry(cfg, n, whole)
+        cs, lane, max_chunks = _global_geometry(cfg, n, whole, ent)
         st = dict(cs=cs, lane=lane, n=n, bs=bs)
+        x = diff_apply(x) if cfg.use_diff else x
         if bs is None:
-            a, meta, tables, total = _encode_stream_stage(
-                x, cfg.use_diff, cs, max_chunks, lane, cfg.entropy)
+            stream, total = rle_encode(
+                x[None, :], torch.tensor([n], dtype=torch.int32,
+                                         device=x.device), max_chunks * cs)
+            stream, total = stream[0], total[0]
         else:
             st["wh"] = w, h = cfg.width, n // cfg.width
-            a, meta, tables, total, st["dirs"], st["tile_lens"] = (
-                _encode_adapt_stage(x, cfg.use_diff, w, h, bs, cs,
-                                    max_chunks, lane, cfg.entropy))
-        st.update(payload=_dense_payload(a, meta, cfg.entropy), meta=meta,
-                  tables=tables,
+            stream, total, st["dirs"], st["tile_lens"] = adapt_encode_fixed(
+                x, w, h, bs, out_len=max_chunks * cs, with_header=False)
+        a, meta, tables = ent.encode(
+            *_chunkify(stream, total, cs, max_chunks), lane)
+        st.update(payload=ent.keep(a, meta), meta=meta, tables=tables,
                   total=total)
         return st
 
@@ -929,31 +737,26 @@ class TorchCodec:
 
     def _start_fetch(self, st: dict) -> None:
         """Start the device -> host copies of a dispatched candidate's
-        arrays into pinned memory (``st["host"]``), all but a canonical
-        payload, whose used length the manifest gives
+        manifest arrays into pinned memory (``st["host"]``): all but the
+        payload, which the coder's payload wave takes
         (``_presplice_payload``)."""
-        dense = self.config.entropy == "canonical"
         keys = [k for k, v in st.items() if isinstance(v, torch.Tensor)
-                and not (k == "payload" and dense)]
+                and k != "payload"]
         with self._xfer.host_stage("dispatch"):
             st["host"] = dict(zip(keys,
                                   self._xfer.fetch([st[k] for k in keys])))
             st["fetched"] = self._xfer.record()
 
     def _presplice_payload(self, st: dict) -> None:
-        """Second wave: once the candidate's manifest has landed, start the
-        copy of its canonical payload's used prefix (``_bucket``)."""
-        if self.config.entropy != "canonical":
-            return
+        """Second wave: once the candidate's manifest has landed, the
+        coder's payload wave (``entropy.payloads``; canonical's copy counts
+        under ``dispatch``)."""
         xf = self._xfer
+        h = st["host"]
         with xf.host_stage("wait"):
             xf.wait_host(st["fetched"])
-        with xf.host_stage("dispatch"):
-            st["used"] = int(st["host"]["meta"].numpy().sum(dtype=np.int64))
-            pay = st["payload"]
-            st["host"]["payload"] = xf.fetch(
-                [pay[: _bucket(st["used"], pay.shape[0])]])[0]
-            st["fetched"] = xf.record()
+        (h["payload"],), st["fetched"] = self.entropy.payloads(
+            xf, [st["payload"]], [st["meta"]], [h["meta"]], "dispatch")
 
     def _assemble_global(self, data: bytes, st: dict) -> bytes:
         """The container of a candidate whose fetches were started; the
@@ -968,26 +771,21 @@ class TorchCodec:
             cs = st["cs"]
             total = int(h["total"])
             n_chunks = _cdiv(total, cs)
-            meta = h["meta"].numpy()[:n_chunks]
-            entropy = self.config.entropy
-            canonical = entropy == "canonical"
+            chunk_bits, tables, lane_words = self.entropy.manifest(
+                *(h[k].numpy()[:n_chunks] for k in ("meta", "tables")
+                  if k in h))
             adapt_meta = None
             if st["bs"] is not None:
                 tile_lens = h["tile_lens"].numpy()
-                # the payload estimate: the lanes' words, or the FGK bits
-                est = (4 * int(meta.sum()) if canonical
-                       else int(meta.sum()) // 8)
+                # the payload estimate in bytes
+                est = sum(chunk_bits) // 8
                 grouped = grouped_manifest(len(tile_lens), st["bs"], est)
                 adapt_meta = (*st["wh"], st["bs"], h["dirs"].numpy(),
                               tile_lens, grouped)
-            payload = h["payload"][: st["used"]] if canonical else h["payload"]
             return self._container(
-                _words_to_wire(payload), st["n"], total,
-                _chunk_bits(meta, entropy),
-                h["tables"].numpy()[:n_chunks] if canonical else None,
-                meta if canonical else None, None,
-                crc, chunk_size=cs, lane=st["lane"],
-                adapt_meta=adapt_meta)
+                self.entropy.wire(h["payload"]), st["n"], total, chunk_bits,
+                tables, lane_words, None, crc, chunk_size=cs,
+                lane=st["lane"], adapt_meta=adapt_meta)
 
     def _encode_global(self, data: bytes, bs, whole: bool) -> bytes:
         st = self._dispatch_global(data, bs, whole)
@@ -1020,22 +818,23 @@ class TorchCodec:
     def _container(self, payload, orig, total, chunk_bits, tables,
                    lane_words, sharded_meta, crc=0, chunk_size=None,
                    lane=None, adapt_meta=None) -> bytes:
-        """``adapt_meta``: (W, H, bs, dirs, tile_lens, grouped) of an
-        adaptive container, else None."""
+        """``chunk_bits``, ``tables`` and ``lane_words`` as
+        ``entropy.manifest`` gives them (no tables: FGK). ``adapt_meta``:
+        (W, H, bs, dirs, tile_lens, grouped) of an adaptive container,
+        else None."""
         cfg = self.config
         chunk_size = cfg.chunk_size if chunk_size is None else chunk_size
         lane = cfg.lane if lane is None else lane
-        canonical = cfg.entropy == "canonical"
         out = bytearray()
         out += V3_MAGIC
         out.append(3)  # container version
         grouped = adapt_meta is not None and adapt_meta[5]
         out.append(cfg.flags() | (FLAG_AGROUP if grouped else 0))
-        out.append(ENTROPY[cfg.entropy])
+        out.append(self.entropy.code)
         # code-length table bit width, then the lane-words bit width: the
         # maximum of THIS container
         tw = kw = 0
-        if canonical and len(chunk_bits):
+        if tables is not None and len(chunk_bits):
             tw = 4 if int(np.max(tables)) <= 15 else 5
             kw = max(1, int(np.asarray(lane_words).max()).bit_length())
         out.append(tw)
@@ -1056,13 +855,13 @@ class TorchCodec:
             else:
                 out += np.asarray(tile_lens,
                                   f"<u{tile_len_width(bs)}").tobytes()
-        if not canonical:
+        if tables is None:
             out += np.asarray(chunk_bits, "<u4").tobytes()
         if sharded_meta is not None:
             rle_lens, carries = sharded_meta
             out += np.asarray(rle_lens, "<u4").tobytes()
             out += np.asarray(carries, np.uint8).tobytes()
-        if canonical and len(chunk_bits):
+        if tables is not None and len(chunk_bits):
             # tables at tw bits per length; lane_words of the used lanes
             # only (the used count per chunk follows from its rle_len);
             # chunk_bits is implied: 32 * sum(lane_words)
@@ -1090,79 +889,23 @@ class TorchCodec:
 
     # -- decode -------------------------------------------------------------
 
-    def _check_supported(self, hdr: dict) -> None:
-        if hdr["entropy"] not in (ENTROPY_CANONICAL, ENTROPY_FGK):
-            raise ValueError(f"unknown entropy mode {hdr['entropy']} in "
-                             "the v3 container")
-
-    def _stage_fgk_words(self, blob: bytes, hdr: dict, c0: int, c1: int,
-                         rows: int) -> torch.Tensor:
-        """Chunks [c0, c1) of an FGK container as (rows, W) int32 word rows
-        on the device, zero past each chunk's stream (and in the rows past
-        c1 - c0). Only the payload bytes cross to the device; W is the
-        longest stream's words plus one zero word, so a read past any
-        stream reads zeros, as in the JAX package's wider rows. The row
-        cut (``chunk_words``) is the device span ``fgk rows``, after the
-        upload's ``host staging``; the chunks' bits are counted as ``fgk
-        code bits``."""
-        xf = self._xfer
-        offs = hdr["chunk_offs"]
-        base = hdr["payload_off"] + int(offs[c0])
-        nbytes = int(offs[c1] - offs[c0])
-        nb = np.diff(offs[c0:c1 + 1])
-        _, (payload, off, nbt), ready = xf.upload([
-            (np.frombuffer(blob, np.uint8, nbytes, base), nbytes,
-             torch.uint8),
-            (offs[c0:c1] - offs[c0], rows, torch.int64),
-            (nb, rows, torch.int64)])
-        xf.wait(ready)
-        if xf.timer is not None:
-            xf.timer.count("fgk code bits", sum(hdr["chunk_bits"][c0:c1]))
-        n_words = _cdiv(int(nb.max(initial=0)), 4) + 1
-        with xf.device_stage("fgk rows"):
-            return chunk_words(payload, off, nbt, n_words)
+    @staticmethod
+    def _check_supported(hdr: dict):
+        """The coder of a parsed container (``entropy.by_code``); an unknown
+        entropy mode raises."""
+        return entropy.by_code(hdr["entropy"])
 
     def _stage_step(self, blob: bytes, hdr: dict, c0: int, c1: int, S: int):
-        """Host -> device transfer of one decode step, without any compute:
-        the manifest rows zero-padded to S chunks and the step's dense
-        payload words (canonical), staged in one pinned buffer and copied
-        on the copy stream; ``ready`` is the event that marks the copy
-        (the compute waits on it, the host does not). FGK word rows are
-        cut on the device as they are staged."""
-        parts = [(hdr["rle_lens"][c0:c1], S, torch.int32),
-                 (hdr["carries"][c0:c1], S, torch.uint8)]
-        canonical = hdr["entropy"] != ENTROPY_FGK
-        if canonical:
-            nl = hdr["lane_words"].shape[1]
-            offs = hdr["chunk_offs"]
-            nw = int(offs[c1] - offs[c0]) // 4
-            parts += [(hdr["lane_words"][c0:c1], S * nl, torch.int32),
-                      (hdr["tables"][c0:c1], S * 256, torch.uint8),
-                      (np.frombuffer(blob, ">u4", nw,
-                                     hdr["payload_off"] + int(offs[c0])),
-                       nw, torch.int32)]
-        _, views, ready = self._xfer.upload(parts)
-        st = {"c0": c0, "c1": c1, "rl": views[0], "car": views[1],
-              "ready": ready}
-        if canonical:
-            st.update(lw=views[2].view(S, nl), tables=views[3].view(S, 256),
-                      flat=views[4])
-        else:
-            st["words"] = self._stage_fgk_words(blob, hdr, c0, c1, S)
-        return st
-
-    @staticmethod
-    def _entropy_decode(hdr: dict, st: dict, counts: torch.Tensor,
-                        out_len: int) -> torch.Tensor:
-        """A staged step's chunks -> (rows, out_len) uint8 symbols: the FGK
-        decode of its word rows, or the re-pad and canonical lane decode
-        of its dense lane words."""
-        if _entropy_name(hdr) == "fgk":
-            return kernels.fgk_decode(st["words"], counts, out_len)
-        words = kernels.repad_words(st["flat"], st["lw"], hdr["wl_bucket"])
-        return canonical_decode_batch(
-            words, st["tables"], st["lw"], counts, lane=hdr["lane"],
-            out_len=out_len, max_len=hdr["max_len_bucket"])
+        """Host -> device transfer of one decode step, without compute: the
+        manifest rows zero-padded to S chunks and what the coder stages
+        (``entropy.stage_step``); ``ready`` marks the copy (the compute
+        waits on it, the host does not)."""
+        (rl, car), ready, rows = self._check_supported(hdr).stage_step(
+            self._xfer, blob, hdr, c0, c1, S,
+            [(hdr["rle_lens"][c0:c1], S, torch.int32),
+             (hdr["carries"][c0:c1], S, torch.uint8)])
+        return {"c0": c0, "c1": c1, "rl": rl, "car": car, "ready": ready,
+                **rows}
 
     def stage_decode_steps(self, blob: bytes, hdr: dict | None = None):
         """Parse, then start the host -> device transfer of every decode
@@ -1183,49 +926,36 @@ class TorchCodec:
     def _decode_step(self, hdr: dict, st: dict,
                      out: torch.Tensor | None = None) -> torch.Tensor:
         """A staged step's decode, launch by launch and without
-        synchronising: re-pad and lane decode (canonical) or the FGK
-        decode, then ``rle_expand``, which writes its (S, chunk_size) rows
-        into ``out`` when given. Returns the (S * chunk_size,) uint8 bytes
-        on the device."""
+        synchronising: the coder's decode (``entropy.decode``), then
+        ``rle_expand``, which writes its (S, chunk_size) rows into ``out``
+        when given. Returns the (S * chunk_size,) uint8 bytes on the
+        device."""
+        ent = self._check_supported(hdr)
         self._xfer.wait(st["ready"])
         cs = hdr["chunk_size"]
-        cap = _sharded_cap(cs, _entropy_name(hdr), hdr["lane"])
-        chunks_rle = self._entropy_decode(hdr, st, st["rl"], cap)
+        chunks_rle = ent.decode(hdr, st, st["rl"], ent.cap(cs, hdr["lane"]))
         return kernels.rle_expand(chunks_rle, st["rl"], st["car"], cs,
                                   bool(hdr["flags"] & FLAG_DIFF),
                                   out=out).view(-1)
 
-    def _run_decode(self, hdr: dict, staged: list,
-                    width: int | None = None) -> torch.Tensor:
+    def _run_decode(self, hdr: dict, staged: list) -> torch.Tensor:
         """Every staged step decoded into one (steps * S * chunk_size,)
-        uint8 device tensor, without synchronising. Each step runs
-        launch by launch (``_decode_step``; no CUDA graph, whose key would
-        follow the container's data: its lane stride and code-length
-        bucket) and writes its rows straight into its slice of the
-        result. Canonical steps run one after another, each in a device
-        span ``device``. FGK steps, each bound by its longest chain, run
-        side by side (``SideBySide``), ``width`` at once (``_fgk_width``
-        by default; a test may pass 1), after the fork, which follows
-        every step's row cut; their span ``device`` runs from the fork to
-        the join."""
+        uint8 device tensor, without synchronising, in the coder's schedule
+        (FGK's fork follows every step's row cut). Each step runs launch by
+        launch (``_decode_step``; no CUDA graph, whose key would follow the
+        container's lane stride and code-length bucket) and writes its
+        rows straight into its slice of the result."""
         S = staged[0]["rl"].shape[0] if staged else 0
         cs = hdr["chunk_size"]
-        xf = self._xfer
         out = torch.empty((len(staged) * S, cs), dtype=torch.uint8,
                           device=self.device)
-        if _entropy_name(hdr) != "fgk" or not staged:
-            for k, st in enumerate(staged):
-                with xf.device_stage("device"):
-                    self._decode_step(hdr, st, out[k * S:(k + 1) * S])
-            return out.view(-1)
-        width = self._fgk_width(S) if width is None else width
-        with xf.device_stage("device"):
-            run = SideBySide(xf, len(staged), width, "fgk steps")
-            for k, st in enumerate(staged):
-                with run.step(k, held=(out, st["rl"], st["car"],
-                                       st["words"])):
-                    self._decode_step(hdr, st, out[k * S:(k + 1) * S])
-            run.join()
+        run = self._check_supported(hdr).schedule(self._xfer, len(staged), S)
+        for k, st in enumerate(staged):
+            held = [out, *(t for t in st.values()
+                           if isinstance(t, torch.Tensor))]
+            with run.step(k, held=held):
+                self._decode_step(hdr, st, out[k * S:(k + 1) * S])
+        run.join()
         return out.view(-1)
 
     def run_decode_steps(self, hdr: dict, staged: list):
@@ -1272,22 +1002,16 @@ class TorchCodec:
         device tensor, without synchronising: entropy decode of each
         band's chunk, tile decode from the manifest, per-band diff
         revert."""
-        cap = _sharded_cap(hdr["chunk_size"], _entropy_name(hdr), hdr["lane"])
+        ent = self._check_supported(hdr)
+        cap = ent.cap(hdr["chunk_size"], hdr["lane"])
         parts = []
         for st in staged:
             self._xfer.wait(st["ready"])
-            streams = self._entropy_decode(hdr, st, st["rl"], cap)
-            parts.append(_decode_sharded_adapt_tail(
+            streams = ent.decode(hdr, st, st["rl"], cap)
+            parts.append(decode_sharded_adapt_tail(
                 streams, st["tile_lens"], st["dirs"], st["car"], hdr["w"],
                 st["band_h"], hdr["bs"], bool(hdr["flags"] & FLAG_DIFF)))
         return torch.cat(parts)
-
-    def _decode_adapt_bands(self, blob: bytes, hdr: dict, c0: int,
-                            c1: int) -> torch.Tensor:
-        """Decode bands [c0, c1) of a sharded-adaptive container; no band
-        outside the range is touched."""
-        return self.run_adapt_bands(
-            hdr, self.stage_adapt_bands(blob, hdr, c0, c1))
 
     @staticmethod
     def _band_groups(c0, c1, nb_full, h_tail, nt_full, w, bs, band_h):
@@ -1333,26 +1057,13 @@ class TorchCodec:
 
     def stage_global(self, blob: bytes, hdr: dict) -> dict:
         """Host -> device transfer of a global-layout container: every
-        chunk's dense payload and the manifest, without any compute. A
-        canonical one-chunk container of at most 2 MiB whose lanes divide
-        by 8 is staged as 8 pseudo-chunks that share the one table."""
+        chunk's payload and the manifest as the coder stages them
+        (``entropy.stage_global``), without any compute."""
         if hdr["flags"] & FLAG_SHARDED:
             raise ValueError("stage_global requires the global layout")
-        cs, n_chunks = hdr["chunk_size"], hdr["n_chunks"]
         dev = self.device
         xf = self._xfer
-        if hdr["entropy"] == ENTROPY_FGK:
-            with xf.host_stage("upload"):
-                counts = torch.from_numpy(np.clip(
-                    hdr["total"] - np.arange(n_chunks, dtype=np.int64) * cs,
-                    0, cs).astype(np.int32)).to(dev)
-            # the words' own upload is a "host staging" span
-            st = {"rcs": cs, "counts": counts,
-                  "words": self._stage_fgk_words(blob, hdr, 0, n_chunks,
-                                                 n_chunks)}
-        else:
-            with xf.host_stage("upload"):
-                st = self._stage_global_lanes(blob, hdr)
+        st = self._check_supported(hdr).stage_global(xf, blob, hdr, dev)
         if hdr["flags"] & FLAG_ADAPT:
             with xf.host_stage("upload"):
                 st["dirs"] = torch.from_numpy(hdr["dirs"]).to(dev)
@@ -1361,36 +1072,13 @@ class TorchCodec:
                 st[key] = torch.from_numpy(hdr[key].astype(np.int32)).to(dev)
         return st
 
-    def _stage_global_lanes(self, blob: bytes, hdr: dict) -> dict:
-        """``stage_global``'s canonical payload and tables."""
-        cs, lane, n_chunks = hdr["chunk_size"], hdr["lane"], hdr["n_chunks"]
-        nw = int(hdr["chunk_offs"][-1]) // 4
-        flat = np.frombuffer(blob, ">u4", nw, hdr["payload_off"]).astype(
-            np.uint32)
-        lane_words, tables = hdr["lane_words"], hdr["tables"]
-        n_lanes = cs // lane
-        rows, rcs = n_chunks, cs
-        if (n_chunks == 1 and n_lanes % 8 == 0 and n_lanes >= 8
-                and cs <= _SINGLE_MAX):
-            rows, rcs = 8, cs // 8
-            tables = np.tile(tables, (8, 1))
-            lane_words = np.ascontiguousarray(lane_words.reshape(8, -1))
-        counts = np.clip(hdr["total"] - np.arange(rows, dtype=np.int64) * rcs,
-                         0, rcs).astype(np.int32)
-        dev = self.device
-        return {"rcs": rcs,
-                "flat": torch.from_numpy(flat.view(np.int32)).to(dev),
-                "lw": torch.from_numpy(lane_words).to(dev),
-                "tables": torch.from_numpy(tables).to(dev),
-                "counts": torch.from_numpy(counts).to(dev)}
-
     def run_global_decode(self, hdr: dict, st: dict):
         """The decode compute of a staged global-layout container: (at
         least ``orig`` bytes uint8, the decoded length) on the device,
         without synchronising."""
         # repad is per lane, so the pseudo-chunk rows re-pad as they are
-        stream = self._entropy_decode(hdr, st, st["counts"],
-                                      st["rcs"]).reshape(-1)
+        stream = self._check_supported(hdr).decode(
+            hdr, st, st["counts"], st["rcs"]).reshape(-1)
         use_diff = bool(hdr["flags"] & FLAG_DIFF)
         if not hdr["flags"] & FLAG_ADAPT:
             return _decode_stream_tail(stream, hdr["total"], hdr["orig"] + 8,
@@ -1444,8 +1132,8 @@ class TorchCodec:
         self._check_supported(hdr)
         if hdr["flags"] & FLAG_SHARDED:
             if hdr["flags"] & FLAG_ADAPT:
-                flat = self._decode_adapt_bands(blob, hdr, 0,
-                                                hdr["n_chunks"])
+                flat = self.run_adapt_bands(hdr, self.stage_adapt_bands(
+                    blob, hdr, 0, hdr["n_chunks"]))
             else:
                 flat = self._run_decode(
                     hdr, self.stage_decode_steps(blob, hdr)[1])
@@ -1473,13 +1161,14 @@ class TorchCodec:
         if len(blob) < 43 or blob[:6] != V3_MAGIC or blob[6] != 3:
             raise ValueError("invalid v3 container")
         flags = blob[7]
-        entropy = blob[8]
+        code = blob[8]
+        with_tables = entropy.has_tables(code)
         tblw = blob[9]  # canonical table bit width (4 or 5; 0 for fgk)
         kw = blob[10]  # lane-words manifest bit width (container max)
         orig, total, chunk_size, n_chunks, lane, crc = struct.unpack_from(
             "<QQIIII", blob, 11)
         pos = 43
-        hdr = dict(flags=flags, entropy=entropy, orig=orig, total=total,
+        hdr = dict(flags=flags, entropy=code, orig=orig, total=total,
                    chunk_size=chunk_size, n_chunks=n_chunks, lane=lane,
                    crc=crc)
         chunk_bits: list = []
@@ -1501,7 +1190,7 @@ class TorchCodec:
                 hdr["tile_lens"] = np.frombuffer(blob, f"<u{tw}", nt,
                                                  pos).copy()
                 pos += tw * nt
-        if entropy != ENTROPY_CANONICAL:
+        if not with_tables:
             chunk_bits = np.frombuffer(blob, "<u4", n_chunks, pos).tolist()
             pos += 4 * n_chunks
         if flags & FLAG_SHARDED and n_chunks:
@@ -1510,8 +1199,8 @@ class TorchCodec:
             carries = np.frombuffer(blob, np.uint8, n_chunks, pos).copy()
             pos += n_chunks
             hdr.update(rle_lens=rle_lens, carries=carries)
-        if entropy == ENTROPY_CANONICAL and n_chunks:
-            L = (_sharded_cap(chunk_size, "canonical", lane)
+        if with_tables and n_chunks:
+            L = (entropy.CANONICAL.cap(chunk_size, lane)
                  if flags & FLAG_SHARDED else chunk_size)
             tables = _unpackk(blob, n_chunks * 256, tblw, pos).reshape(
                 n_chunks, 256).astype(np.uint8)

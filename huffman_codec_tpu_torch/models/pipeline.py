@@ -26,12 +26,13 @@ the wrappers' counts each time, and the capture, which launches nothing,
 takes them back. A capture that fails raises: nothing falls back to eager
 launches.
 
-``SideBySide`` runs the steps of one request side by side on the codec's
-side streams (``Transfers.side_streams``), where a step's launches are
-bound by one serial chain a chunk and leave most of the card empty (FGK
-entropy): each step waits on its own inputs, not on the step before it,
-and the current stream joins every side stream before the request reads
-a result. How many run at once follows from the card
+The entropy coder picks a request's schedule: ``InOrder`` runs its steps
+one after another on the current stream; ``SideBySide`` runs them side by
+side on the codec's side streams (``Transfers.side_streams``), where a
+step is bound by one serial chain a chunk and leaves most of the card
+empty (FGK): each step waits on its own inputs, not on the step before
+it, and the current stream joins every side stream before the request
+reads a result. How many run at once follows from the card
 (``side_by_side_width``).
 """
 
@@ -101,8 +102,9 @@ class Transfers:
                 self._side_drawn = True
         return self._side[:n]
 
-    def host_stage(self, name: str):
-        return (self.timer.stage(name) if self.timer is not None
+    def host_stage(self, name: str | None):  # None: no span
+        return (self.timer.stage(name)
+                if self.timer is not None and name is not None
                 else contextlib.nullcontext())
 
     def device_stage(self, name: str):
@@ -238,38 +240,66 @@ def side_by_side_width(resident_blocks: int, S: int) -> int:
     return max(1, resident_blocks // S)
 
 
+class InOrder:
+    """``SideBySide``'s methods for steps one after another on the current
+    stream: ``step`` orders the stream after ``ready`` (the host waits on
+    nothing) and runs its block in a device span ``device`` of its own."""
+
+    def __init__(self, xf: Transfers):
+        self.xf = xf
+
+    @contextlib.contextmanager
+    def step(self, k: int, ready=None, held=()):
+        self.xf.wait(ready)
+        with self.xf.device_stage("device"):
+            yield
+
+    @staticmethod
+    def hand_back(tensors):
+        return tensors
+
+    def join(self) -> None:
+        pass
+
+
 class SideBySide:
     """The steps of one request, each on a side stream of the codec: step k
     on ``streams[k % width]``, so a step past the width waits behind the
     earlier step on its stream, and no step waits on any other.
 
     ``step(k, ready, held)`` runs its block on step k's stream. The
-    stream first waits on the fork, an event at the current stream when
-    the request made this object (once a stream), then on ``ready``; each
-    tensor of ``held``, made on another stream, is marked in use on it,
-    so that the caching allocator hands out none of their memory while
-    the step may still read or write it. ``hand_back`` marks a step's
-    outputs in use on the current stream, which reads them after the
-    ``join``: the current stream waits on every side stream used. The
-    host waits on nothing. On the CPU (no streams) each step runs in
-    place.
+    stream first waits on the fork, an event at the current stream at the
+    request's first step (once a stream), then on ``ready``; each tensor
+    of ``held``, made on another stream, is marked in use on it, so that
+    the caching allocator hands out none of their memory while the step
+    may still read or write it. ``hand_back`` marks a step's outputs in
+    use on the current stream, which reads them after the ``join``: the
+    current stream waits on every side stream used. The host waits on
+    nothing. On the CPU (no streams) each step runs in place.
 
-    The timer counts ``<name>``, the steps run, and, on the card,
-    ``<name> side by side``, the steps queued on a stream that held no
-    earlier step of the request (the first step counts)."""
+    One device span ``device`` runs on the current stream from just
+    before the fork to the join. The timer counts ``<name>``, the steps
+    run, and, on the card, ``<name> side by side``, the steps queued on a
+    stream that held no earlier step of the request (the first step
+    counts)."""
 
     def __init__(self, xf: Transfers, n_steps: int, width: int, name: str):
         self.xf, self.name = xf, name
-        self.streams = (xf.side_streams(min(n_steps, width)) if xf.cuda
-                        else [])
-        self.current = (torch.cuda.current_stream(xf.device) if xf.cuda
-                        else None)
-        self.fork = xf.record()
+        self.n_streams = min(n_steps, width)
+        self.span = contextlib.ExitStack()
+        self.streams = None  # drawn at the first step, after its upload
         self.used: set[int] = set()
 
     @contextlib.contextmanager
     def step(self, k: int, ready=None, held=()):
-        timer = self.xf.timer
+        xf = self.xf
+        if self.streams is None:
+            self.span.enter_context(xf.device_stage("device"))
+            self.streams = xf.side_streams(self.n_streams) if xf.cuda else []
+            self.current = (torch.cuda.current_stream(xf.device) if xf.cuda
+                            else None)
+            self.fork = xf.record()
+        timer = xf.timer
         if timer is not None:
             timer.count(self.name)
         if not self.streams:
@@ -299,6 +329,8 @@ class SideBySide:
         return tensors
 
     def join(self) -> None:
-        """The current stream waits on every side stream used."""
+        """The current stream waits on every side stream used; the span
+        ends."""
         for j in sorted(self.used):
             self.current.wait_stream(self.streams[j])
+        self.span.close()

@@ -24,6 +24,8 @@ from them is byte-equal to ``TorchCodec``'s (with the diff model on).
 The decodes take the lanes padded as the encodes return them, not the
 dense wire payload. A decoded chunk is zero past its decoded length,
 where the JAX package's repeats its last byte (with the diff model on).
+What the entropy mode decides (the padded row cap, the entropy encode and
+decode) is asked of its coder (``models/entropy.py``).
 """
 
 from __future__ import annotations
@@ -35,18 +37,14 @@ import torch
 import torch.distributed as dist
 
 from huffman_codec_tpu_torch.models.chunked import (
-    _decode_sharded_adapt_tail,
-    _encode_sharded_adapt_stage,
-    _encode_sharded_stage,
-    _sharded_cap,
+    decode_sharded_adapt_tail,
+    encode_sharded_adapt_stage,
+    encode_sharded_stage,
 )
+from huffman_codec_tpu_torch.models.entropy import CANONICAL, lookup
 from huffman_codec_tpu_torch.ops import kernels
 from huffman_codec_tpu_torch.ops.adapt import _adapt_score_v3, candidate_sizes
-from huffman_codec_tpu_torch.ops.canonical import canonical_decode_batch
 from huffman_codec_tpu_torch.ops.diff import diff_apply
-
-# padded per-chunk RLE buffer length, as the sharded container has it
-sharded_cap = _sharded_cap
 
 
 @dataclass(frozen=True)
@@ -152,16 +150,12 @@ def distributed_encode_step(data: torch.Tensor, length, mesh: Mesh,
     c0, c1 = _block(mesh, data.shape[0] // chunk_size, "chunks")
     local = _local(data, c0 * chunk_size, c1 * chunk_size, mesh)
     carry0 = _carry_in(mesh, local[-1:]) if use_diff else 0
-    a, meta, tables, rle_lens, carries = _encode_sharded_stage(
+    a, meta, tables, rle_lens, carries = encode_sharded_stage(
         local, length - c0 * chunk_size, carry0, use_diff, chunk_size,
-        c1 - c0, lane, entropy, n_words if entropy == "fgk" else None)
+        c1 - c0, lane, lookup(entropy), n_words)
     if not use_diff:
         carries = torch.zeros_like(carries)
-    if entropy == "fgk":
-        words, bits, rle_lens, carries = (
-            _gather(mesh, x) for x in (a, meta, rle_lens, carries))
-        return words, bits, None, rle_lens, carries
-    return tuple(_gather(mesh, x)
+    return tuple(None if x is None else _gather(mesh, x)
                  for x in (a, meta, tables, rle_lens, carries))
 
 
@@ -203,9 +197,9 @@ def distributed_adapt_encode_step(data: torch.Tensor, mesh: Mesh,
     b0, b1 = _block(mesh, data.shape[0] // cs, "bands")
     bands = _local(data, b0 * cs, b1 * cs, mesh).view(b1 - b0, cs)
     carries = torch.cat([_carry_in(mesh, bands[-1, -1:]), bands[:-1, -1]])
-    outs = _encode_sharded_adapt_stage(
+    outs = encode_sharded_adapt_stage(
         bands, carries, use_diff, width, band_h, bs,
-        sharded_cap(cs, entropy, lane), lane)
+        lookup(entropy).cap(cs, lane), lane)
     return tuple(_gather(mesh, x) for x in (*outs, carries))
 
 
@@ -228,10 +222,9 @@ def distributed_adapt_decode_step(words: torch.Tensor,
     w, sl, tab, lw = (_local(x, b0, b1, mesh)
                       for x in (words, stream_lens.to(torch.int32), tables,
                                 lane_words))
-    streams = canonical_decode_batch(
-        w, tab, lw, sl, lane=lane,
-        out_len=sharded_cap(band_h * width, "canonical", lane))
-    out = _decode_sharded_adapt_tail(
+    streams = CANONICAL.decode_rows(w, sl, CANONICAL.cap(band_h * width, lane),
+                                    lane, tab, lw)
+    out = decode_sharded_adapt_tail(
         streams, _local(tile_lens, b0, b1, mesh),
         _local(dirs, b0, b1, mesh).to(torch.bool),
         _local(carries, b0, b1, mesh), width, band_h, bs, use_diff)
@@ -253,15 +246,13 @@ def distributed_decode_step(words: torch.Tensor, rle_lens: torch.Tensor,
     assembles them. Returns uint8[n_chunks * chunk_size], zero past each
     chunk's decoded length."""
     _check_axis(mesh, axis)
+    ent = lookup(entropy)
     c0, c1 = _block(mesh, words.shape[0], "chunks")
-    cap = sharded_cap(chunk_size, entropy, lane)
     w, rl, car = (_local(x, c0, c1, mesh)
                   for x in (words, rle_lens.to(torch.int32), carries))
-    if entropy == "canonical":
-        streams = canonical_decode_batch(
-            w, _local(tables, c0, c1, mesh), _local(lane_words, c0, c1, mesh),
-            rl, lane=lane, out_len=cap)
-    else:
-        streams = kernels.fgk_decode(w, rl, cap)
+    streams = ent.decode_rows(
+        w, rl, ent.cap(chunk_size, lane), lane,
+        *(None if x is None else _local(x, c0, c1, mesh)
+          for x in (tables, lane_words)))
     out = kernels.rle_expand(streams, rl, car, chunk_size, use_diff)
     return _gather(mesh, out).view(-1)

@@ -6,9 +6,9 @@ Two container families:
 
 - v3 canonical: the per-chunk code-length tables ARE the container
   manifest; ``dump_v3_tables`` reads them with ``TorchCodec._parse`` (on
-  the host; no device is needed), reconstructs each chunk's canonical
-  codes (RFC-1951-style first_code assignment, matching ops/canonical.py)
-  and prints one line per present symbol.
+  the host; no device is needed), assigns each chunk's canonical codes
+  (``ops/canonical.assign_codes``, RFC-1951-style first_code) and prints
+  one line per present symbol.
 - v1 (FGK): the tree is never serialized — it is replayed; ``dump_v1_tree``
   re-runs the pyref FGK update loop over the transformed stream and
   prints the FINAL tree in the reference's DFS order with bit prefixes.
@@ -18,13 +18,17 @@ from __future__ import annotations
 
 import sys
 
+import numpy as np
+import torch
+
 from huffman_codec_tpu_torch.formats import (
-    ENTROPY_CANONICAL,
     HUFF_HEADER_BYTES,
     parse_huff_header,
     unpack_bits_msb,
 )
 from huffman_codec_tpu_torch.models.chunked import TorchCodec
+from huffman_codec_tpu_torch.models.entropy import has_tables
+from huffman_codec_tpu_torch.ops.canonical import assign_codes
 from huffman_codec_tpu_torch.pyref.fgk import FGKTree
 
 
@@ -36,33 +40,21 @@ def dump_v3_tables(blob: bytes, out=None, max_chunks: int | None = None):
     """Print every chunk's canonical code table of a v3 container."""
     out = out or sys.stderr
     hdr = TorchCodec._parse(blob)
-    if hdr["entropy"] != ENTROPY_CANONICAL:
+    if not has_tables(hdr["entropy"]):
         out.write("v3 container uses FGK entropy; per-chunk trees are "
                   "adaptive (replay with dump_v1_tree semantics)\n")
         return
     tables = hdr["tables"]
     n = len(tables) if max_chunks is None else min(max_chunks, len(tables))
+    codes = assign_codes(torch.from_numpy(tables[:n].astype(np.int64)))
     for c in range(n):
         lens = tables[c]
-        # canonical assignment: count per length, first_code prefix sums
-        bl_count = [0] * 33
-        for length in lens:
-            bl_count[int(length)] += 1
-        bl_count[0] = 0
-        code, first = 0, [0] * 33
-        for bits in range(1, 33):
-            code = (code + bl_count[bits - 1]) << 1
-            first[bits] = code
-        nxt = list(first)
         out.write(f"chunk {c}: {sum(1 for v in lens if v)} symbols\n")
         for sym in sorted(range(256), key=lambda s: (int(lens[s]), s)):
             ln = int(lens[sym])
-            if ln == 0:
-                continue
-            cw = nxt[ln]
-            nxt[ln] += 1
-            out.write(f"  0x{sym:02x} '{_printable(sym)}' len {ln:2d} "
-                      f"code {cw:0{ln}b}\n")
+            if ln:
+                out.write(f"  0x{sym:02x} '{_printable(sym)}' len {ln:2d} "
+                          f"code {int(codes[c, sym]):0{ln}b}\n")
 
 
 def dump_v1_tree(blob: bytes, out=None, max_symbols: int = 1 << 15):

@@ -20,6 +20,7 @@ from huffman_codec_tpu_torch import CodecConfig, TorchCodec, config_from_fields 
 from huffman_codec_tpu_torch.edge_cases import (  # noqa: E402
     ODD_CONFIGS, odd_config_input)
 from huffman_codec_tpu_torch.models import chunked as tch  # noqa: E402
+from huffman_codec_tpu_torch.models.entropy import lookup  # noqa: E402
 from huffman_codec_tpu_torch.ops.kernels import lane_words_cap  # noqa: E402
 from huffman_codec_tpu_torch.ops.rle import rle_max_encoded_len  # noqa: E402
 
@@ -209,7 +210,7 @@ def test_size_helpers_match_jax():
     for lane in (64, 128, 512, 2048, 32768):
         assert lane_words_cap(lane) == jax_lwc(lane)
         for cs in (4096, 65536):
-            assert (tch._sharded_cap(cs, "canonical", lane)
+            assert (lookup("canonical").cap(cs, lane)
                     == jch._sharded_cap(cs, "canonical", lane))
 
 

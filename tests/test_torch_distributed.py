@@ -22,6 +22,7 @@ from huffman_codec_tpu.models import CodecConfig as JCodecConfig  # noqa: E402
 from huffman_codec_tpu.models import TPUCodec  # noqa: E402
 from huffman_codec_tpu.parallel import distributed as jdist  # noqa: E402
 from huffman_codec_tpu_torch import CodecConfig, TorchCodec  # noqa: E402
+from huffman_codec_tpu_torch.models.entropy import lookup  # noqa: E402
 from huffman_codec_tpu_torch.parallel import distributed as tdist  # noqa: E402
 from huffman_codec_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 
@@ -89,7 +90,7 @@ def test_sharded_cap_matches_jax():
     for cs, ent, lane in [(65536, "canonical", 512), (1024, "canonical", 128),
                           (1000, "canonical", 100), (256, "fgk", 64),
                           (65536, "fgk", 512)]:
-        assert tmesh.sharded_cap(cs, ent, lane) == sharded_cap(cs, ent, lane)
+        assert lookup(ent).cap(cs, lane) == sharded_cap(cs, ent, lane)
 
 
 def test_elastic_redispatch_roundtrip():

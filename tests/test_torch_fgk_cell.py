@@ -12,9 +12,8 @@ steps.
 * The container is judged 0 by ``v3_fgk`` with every chunk judged, and
   the ``lsb`` control (the lowest input bit cleared) more than 0.
 * The decode equals the input.
-* ``fgk code bits`` of an encode and of a decode equal the container's
-  code bits (``v3_fgk.sizes``); an encode records ``fgk strip``; both
-  count their ``fgk steps``.
+* An encode records ``fgk strip``; an encode and a decode count their
+  ``fgk steps``.
 * The canonical codec of the same configuration records the spans and
   counters it did before FGK had any, and no ``fgk`` name.
 * On a card, a decode records the device span ``fgk rows``, and both
@@ -40,7 +39,7 @@ SEED = 2**31 + 4321
 
 ENCODE = {"host staging", "payload", "crc32", "container"}
 DECODE = {"parse", "parse copied bytes", "host staging", "bytes", "crc32"}
-FGK = {"fgk strip", "fgk code bits", "fgk steps"}
+FGK = {"fgk strip", "fgk steps"}
 STEPS = 4
 
 
@@ -103,29 +102,18 @@ def test_decode_equals_input(made):
 
 
 @pytest.mark.parametrize("kind", ["encode", "decode"])
-def test_code_bits_counter(made, kind):
-    _, x, codec, blob, t = made
-    if kind == "decode":
-        out, t = _timed(codec, codec.decode, blob)
-        assert out == x.tobytes()
-    assert "fgk code bits" in t.counters
-    assert t.stages["fgk code bits"] == v3_fgk.sizes(blob)["code_bits"] > 0
-
-
-@pytest.mark.parametrize("kind", ["encode", "decode"])
 def test_fgk_spans_recorded(made, kind):
     _, x, codec, blob, t = made
     if kind == "decode":
         _, t = _timed(codec, codec.decode, blob)
         # "fgk rows" is a device span: CUDA events, so not on the CPU
-        assert set(t.stages) == DECODE | {"fgk code bits", "fgk steps"}
+        assert set(t.stages) == DECODE | {"fgk steps"}
     else:
         assert set(t.stages) == ENCODE | FGK
         assert t.stages["fgk strip"] > 0
     assert t.stages["fgk steps"] == STEPS
-    assert t.counters == ({"fgk code bits", "fgk steps"} if kind == "encode"
-                          else {"fgk code bits", "fgk steps",
-                                "parse copied bytes"})
+    assert t.counters == ({"fgk steps"} if kind == "encode"
+                          else {"fgk steps", "parse copied bytes"})
 
 
 @pytest.mark.parametrize("kind", ["encode", "decode"])
@@ -158,8 +146,7 @@ def test_fgk_rows_on_the_card(made, cuda):
     assert t.stages["fgk steps"] == t.stages[side] == STEPS
     out, t = _timed(codec, codec.decode, blob)
     assert out == x.tobytes()
-    assert set(t.stages) == DECODE | {"device", "fgk rows", "fgk code bits",
-                                      "fgk steps", side}
+    assert set(t.stages) == DECODE | {"device", "fgk rows", "fgk steps",
+                                      side}
     assert t.stages["fgk steps"] == t.stages[side] == STEPS
     assert t.stages["fgk rows"] > 0
-    assert t.stages["fgk code bits"] == v3_fgk.sizes(blob)["code_bits"]

@@ -1,7 +1,8 @@
 """The FGK steps of one request side by side (``models/pipeline.py``:
-``SideBySide``, ``side_by_side_width``; ``TorchCodec._dispatch_fgk`` and
-the FGK branch of ``_run_decode``). Imports no JAX, so the card tests run
-on a machine with a card:
+``SideBySide``, ``side_by_side_width``; the FGK coder's schedule,
+``models/entropy.py``, in ``TorchCodec.dispatch_sharded`` and
+``_run_decode``). Imports no JAX, so the card tests run on a machine with
+a card:
 
     python -m pytest -o addopts="" -q tests/test_torch_fgk_side_by_side.py
 
@@ -20,8 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from huffman_codec_tpu_torch import CodecConfig, TorchCodec  # noqa: E402
-from huffman_codec_tpu_torch.models.chunked import (  # noqa: E402
-    encode_step_chunks)
+from huffman_codec_tpu_torch.models.entropy import FGK  # noqa: E402
 from huffman_codec_tpu_torch.models.pipeline import (  # noqa: E402
     side_by_side_width)
 from huffman_codec_tpu_torch.ops import kernels as K  # noqa: E402
@@ -65,12 +65,12 @@ def _codec(dev):
                                   entropy="fgk"), device=dev)
 
 
-def _one_at_a_time(codec, data: bytes) -> bytes:
-    """The encode with the width forced to 1: every step on one stream."""
-    arr = np.frombuffer(data, np.uint8)
-    n_chunks = -(-len(arr) // CS)
-    return codec.fetch_sharded(data, codec._dispatch_fgk(
-        arr, n_chunks, encode_step_chunks(n_chunks, S), width=1))
+def _one_at_a_time(fn, *args):
+    """``fn(*args)`` with the FGK steps' width forced to 1: every step on
+    one stream."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(FGK, "width", staticmethod(lambda xf, S_: 1))
+        return fn(*args)
 
 
 @pytest.mark.cuda
@@ -90,9 +90,9 @@ def test_side_by_side_equals_one_at_a_time(cuda):
     dec = codec.timer.stages
     assert dec["fgk steps"] == dec[SIDE] == STEPS
     codec.timer = None
-    assert _one_at_a_time(codec, data) == blob
+    assert _one_at_a_time(codec.encode, data) == blob
     hdr, staged = codec.stage_decode_steps(blob)
-    flat = codec._run_decode(hdr, staged, width=1)
+    flat = _one_at_a_time(codec._run_decode, hdr, staged)
     assert flat[:N].cpu().numpy().tobytes() == data
 
 
@@ -105,4 +105,4 @@ def test_back_to_back_round_trips_stay_exact(cuda):
     blobs = [codec.encode(d) for d in datas]
     outs = [codec.decode(b) for b in blobs]
     assert outs == datas
-    assert [_one_at_a_time(codec, d) for d in datas] == blobs
+    assert [_one_at_a_time(codec.encode, d) for d in datas] == blobs

@@ -8,9 +8,9 @@ test, nearly every level), else a gallop back from k and a binary search
 while no level swaps (a weight increment changes no edge), and the decoder
 notes each level's own test on its root-to-leaf walk and applies the
 increments of the levels below the deepest failed test without another
-climb. ``kernel_variants/fgk_chain.cu`` times a second successor, Knuth's
-block records (``succ="blocks"``: a block id a slot, the leader a block,
-kept in O(1) a level), against it.
+climb. A second successor, Knuth's block records (``succ="blocks"``: a
+block id a slot, the leader a block, kept in O(1) a level), was timed
+against it (``git show 128a866:kernel_variants/fgk_chain.cu``).
 
 ``ChainTree`` models both, record for record: every climb level checks
 the successor against ``fast_find_succ_slot`` (the rule

@@ -958,20 +958,22 @@ def test_mesh_world1_nccl_equals_cpu_plain_path(nccl_world1, name):
     128, 8 chunks, a partial tail) equals the single-process stage run
     on the CPU's plain versions (zero carries without diff, as the JAX
     mesh has them), and ``distributed_decode_step`` returns the input."""
-    from huffman_codec_tpu_torch.models.chunked import _encode_sharded_stage
+    from huffman_codec_tpu_torch.models.chunked import encode_sharded_stage
+    from huffman_codec_tpu_torch.models.entropy import lookup
     from huffman_codec_tpu_torch.parallel import mesh as M
 
     use_diff, ent = MESH_CASES[name]
     cs, nc, lane = 1024, 8, 128
     raw = _image(64, 128, 31)
     n = raw.size - 301
-    nw = n_words_for(M.sharded_cap(cs, ent, lane))
+    nw = n_words_for(lookup(ent).cap(cs, lane))
     mesh = nccl_world1
     K.reset_launches()
     got = M.distributed_encode_step(torch.from_numpy(raw).to(mesh.device),
                                     n, mesh, cs, nw, use_diff, ent, lane)
-    a, meta, tab, rl, car = _encode_sharded_stage(
-        torch.from_numpy(raw), n, 0, use_diff, cs, nc, lane, ent, nw)
+    a, meta, tab, rl, car = encode_sharded_stage(
+        torch.from_numpy(raw), n, 0, use_diff, cs, nc, lane, lookup(ent),
+        nw)
     if not use_diff:
         car = torch.zeros_like(car)
     for g, w in zip(got, (a, meta, tab, rl, car)):
@@ -991,7 +993,8 @@ def test_mesh_adapt_world1_nccl_equals_cpu_plain_path(nccl_world1):
     """The adaptive search, encode and decode on NCCL at world 1 against
     the single-process functions on the CPU's plain versions."""
     from huffman_codec_tpu_torch.models.chunked import (
-        _encode_sharded_adapt_stage)
+        encode_sharded_adapt_stage)
+    from huffman_codec_tpu_torch.models.entropy import CANONICAL
     from huffman_codec_tpu_torch.ops.diff import diff_apply
     from huffman_codec_tpu_torch.parallel import mesh as M
 
@@ -1008,9 +1011,8 @@ def test_mesh_adapt_world1_nccl_equals_cpu_plain_path(nccl_world1):
                                           "canonical", lane)
     bands = x.view(-1, w * bh)
     car = torch.cat([torch.zeros(1, dtype=torch.uint8), bands[:-1, -1]])
-    ref = _encode_sharded_adapt_stage(bands, car, True, w, bh, bs,
-                                      M.sharded_cap(w * bh, "canonical",
-                                                    lane), lane)
+    ref = encode_sharded_adapt_stage(bands, car, True, w, bh, bs,
+                                     CANONICAL.cap(w * bh, lane), lane)
     for g, r in zip(got, (*ref, car)):
         assert torch.equal(g.cpu(), r)
     buf, lw, tab, tot, dirs, tl, c = got
@@ -1050,6 +1052,7 @@ def test_step_graphs_equal_eager_steps(cuda, name, use_diff):
     container equals the CPU plain path's. The codec keeps one graph, the
     encode step's (the decode runs launch by launch)."""
     from huffman_codec_tpu_torch.models import chunked as tch
+    from huffman_codec_tpu_torch.models.entropy import CANONICAL
 
     kw, n = PIPE_CONFIGS[name]
     cfg = CodecConfig(use_diff=use_diff, **kw)
@@ -1064,7 +1067,7 @@ def test_step_graphs_equal_eager_steps(cuda, name, use_diff):
     for k in range(-(-n // (S * cs))):
         base = codec._upload_step(arr, k * S, (k + 1) * S)
         got = codec._run_encode_step(base, S)
-        want = tch._encode_step(base, S, cs, cfg.lane, use_diff, "canonical")
+        want = tch._encode_step(base, S, cs, cfg.lane, use_diff, CANONICAL)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     hdr, staged = codec.stage_decode_steps(blob)

@@ -29,7 +29,8 @@ from huffman_codec_tpu_torch import formats as tfmt  # noqa: E402
 from huffman_codec_tpu_torch import native as tnative  # noqa: E402
 from huffman_codec_tpu_torch import ops as tops  # noqa: E402
 from huffman_codec_tpu_torch.models.chunked import (  # noqa: E402
-    _encode_sharded_stage, _sharded_cap)
+    encode_sharded_stage)
+from huffman_codec_tpu_torch.models.entropy import CANONICAL  # noqa: E402
 from huffman_codec_tpu_torch.ops import canonical as tcan  # noqa: E402
 from huffman_codec_tpu_torch.ops import fgk as tfgk  # noqa: E402
 from huffman_codec_tpu_torch.ops import kernels as K  # noqa: E402
@@ -197,15 +198,15 @@ def test_plain_kernel1_and_6_equal_native_oracle(use_diff):
     x[3000:3400] = 200  # a run across no boundary; runs of 254-258 below
     x[cs * 2 - 130: cs * 2 + 128] = 33  # a run across a chunk boundary
     want = _oracle_streams(x, cs, n, use_diff)
-    cap = _sharded_cap(cs, "canonical", lane)
+    cap = CANONICAL.cap(cs, lane)
     buf = np.zeros(cs * step * 3, np.uint8)
     buf[:n] = x
     for k in range(3):
         seg = torch.from_numpy(buf[k * step * cs:(k + 1) * step * cs].copy())
         length = min(n - k * step * cs, step * cs)
         carry0 = int(x[k * step * cs - 1]) if k else 0
-        *_, rl, car = _encode_sharded_stage(seg, length, carry0, use_diff,
-                                            cs, step, lane)
+        *_, rl, car = encode_sharded_stage(seg, length, carry0, use_diff,
+                                           cs, step, lane)
         ins = torch.tensor([max(0, min(cs, length - c * cs))
                             for c in range(step)], dtype=torch.int32)
         st, ln = K.rle_diff_encode(seg.view(step, cs), ins, car, use_diff,

@@ -40,8 +40,8 @@ from huffman_codec_tpu.models import TPUCodec  # noqa: E402
 from huffman_codec_tpu.models.chunked import _n_words_for  # noqa: E402
 from huffman_codec_tpu.parallel import mesh as jmesh  # noqa: E402
 from huffman_codec_tpu_torch import CodecConfig, TorchCodec  # noqa: E402
-from huffman_codec_tpu_torch.models.chunked import (  # noqa: E402
-    _strip_payload, _words_to_wire)
+from huffman_codec_tpu_torch.models.entropy import (  # noqa: E402
+    CANONICAL, _strip_payload)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 WORLDS = (1, 2, 4)
@@ -84,6 +84,7 @@ import torch
 sys.path.insert(0, sys.argv[5])
 from huffman_codec_tpu_torch.parallel import distributed as D
 from huffman_codec_tpu_torch.parallel import mesh as M
+from huffman_codec_tpu_torch.models.entropy import lookup
 from huffman_codec_tpu_torch.ops.fgk import n_words_for
 
 rank, world, port, outdir = (int(sys.argv[1]), int(sys.argv[2]),
@@ -103,7 +104,7 @@ out = {}
 for name, (cs, nc, lane, cut, diff, ent) in cases.items():
     data = torch.from_numpy(inp[name].copy())
     n = cs * nc - cut
-    nw = n_words_for(M.sharded_cap(cs, ent, lane))
+    nw = n_words_for(lookup(ent).cap(cs, lane))
     enc = M.distributed_encode_step(data, n, mesh, cs, nw, use_diff=diff,
                                     entropy=ent, lane=lane)
     for k, a in zip(("a", "meta", "tables", "rle_lens", "carries"), enc):
@@ -311,7 +312,7 @@ def _assemble(codec, got, name, raw, n):
     buf, lw, tables, rl, car = (got[f"{name}.{k}"] for k in
                                 ("a", "meta", "tables", "rle_lens",
                                  "carries"))
-    payload = _words_to_wire(_strip_payload(torch.from_numpy(buf),
+    payload = CANONICAL.wire(_strip_payload(torch.from_numpy(buf),
                                             torch.from_numpy(lw))[
                                                 : int(lw.sum())])
     return codec._container(payload, n, int(rl.sum()),

@@ -30,6 +30,7 @@ torch = pytest.importorskip("torch")
 from huffman_codec_tpu.models import chunked as jch  # noqa: E402
 from huffman_codec_tpu_torch import TorchCodec, config_from_fields  # noqa: E402
 from huffman_codec_tpu_torch.models import chunked as tch  # noqa: E402
+from huffman_codec_tpu_torch.models import entropy as tent  # noqa: E402
 from huffman_codec_tpu_torch.ops.kernels import lane_words_cap  # noqa: E402
 from huffman_codec_tpu_torch.utils.profiling import StageTimer  # noqa: E402
 
@@ -78,7 +79,7 @@ def test_fixed_shape_strip_equals_mask_strip(C, nl, lane):
     buf = torch.from_numpy(rng.integers(-2**31, 2**31, (C, nl, W),
                                         dtype=np.int64).astype(np.int32))
     lw = torch.from_numpy(_lane_words(C, nl, W, C + nl))
-    got = tch._strip_payload(buf, lw)
+    got = tent._strip_payload(buf, lw)
     want = _mask_strip(buf, lw)
     k = int(lw.sum())
     assert got.shape == (C * nl * W,) and got.dtype == torch.int32

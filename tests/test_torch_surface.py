@@ -66,6 +66,9 @@ NO_COUNTERPART = {
     ("ops/fgk.py", "fgk_decode_step"):
         "a lax.scan body; the port's plain decode loop and the fgk_decode "
         "kernel take its place",
+    ("parallel/mesh.py", "sharded_cap"):
+        "the padded row cap is the entropy coder's: "
+        "models/entropy.py's lookup(entropy).cap(chunk_size, lane)",
 }
 
 # (module, qualified name) -> the trailing parameters the port adds, or
